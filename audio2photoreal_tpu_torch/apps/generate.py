@@ -1,0 +1,183 @@
+"""Batch inference CLI: the pose generate path.
+
+Counterpart of ``audio2photoreal_tpu/apps/generate.py:generate`` (reference:
+sample/generate.py): re-hydrate the configs from the checkpoint's
+``config.json``, take the test-split chunks, encode the conditioning once,
+run DDIM with cached classifier-free guidance, inverse-normalise, and save
+``results.npy`` in the reference layout {motions, gt, audio, lengths,
+keyframes}, motions as [B, C, 1, T] (sample/generate.py:146-152).
+
+A checkpoint directory holds ``config.json`` (the JAX package's sidecar
+format) and ``model.pt``, a ``state_dict`` under the reference's names.
+
+Keyframes are the dataset's 1 fps ground-truth poses: guide-LM keyframing
+(``--resume_trans/--resume_vq``), the face branch and the render
+(``--plot``) are not ported yet and raise.
+
+x_T is drawn from a ``torch.Generator`` seeded with ``seed``, so for the
+same seed it differs from the JAX package's ``jax.random`` draw.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, load_config
+from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
+from audio2photoreal_tpu_torch.data.stats import DataStats
+from audio2photoreal_tpu_torch.diffusion import sampling
+from audio2photoreal_tpu_torch.diffusion.respace import maybe_respaced
+from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn_cached
+from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
+
+MODEL_FILE = "model.pt"
+
+
+def find_stats(person_dir: str) -> DataStats:
+    for name in ("data_stats.npz", "data_stats.pth"):
+        p = os.path.join(person_dir, name)
+        if os.path.exists(p):
+            return DataStats.load(p)
+    raise FileNotFoundError(f"no data stats under {person_dir}")
+
+
+def load_model(model_path: str, device) -> FiLMDenoiser:
+    """``config.json`` + ``model.pt`` -> an eval-mode FiLMDenoiser on ``device``."""
+    mcfg: DenoiserConfig = load_config(model_path)["denoiser"]
+    # the frozen frontend may be trained in bf16, but inference runs it in
+    # f32, as the JAX generate does
+    mcfg = dataclasses.replace(mcfg, frontend_dtype="float32")
+    model = FiLMDenoiser(mcfg)
+    sd = torch.load(os.path.join(model_path, MODEL_FILE), map_location="cpu", weights_only=True)
+    model.load_state_dict(sd, strict=True)
+    return model.to(device).eval()
+
+
+def draw_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """x_T ~ N(0, I)."""
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.no_grad()
+def generate(
+    model_path: str,
+    data_root: str,
+    *,
+    num_samples: int = 5,
+    num_repetitions: int = 1,
+    guidance_param: float = 2.0,
+    timestep_respacing: str = "ddim500",
+    guide_path: Optional[str] = None,
+    vq_path: Optional[str] = None,
+    seed: int = 10,
+    output_dir: Optional[str] = None,
+    plot: bool = False,
+    device: Optional[str] = None,
+    timings: Optional[Dict[str, float]] = None,
+) -> str:
+    """Write ``results.npy`` and return its path.  ``timings``, when given,
+    receives the wall seconds of the conditioning encode and of the DDIM
+    loop, summed over repetitions (the device is synchronised at each)."""
+    if guide_path or vq_path:
+        raise NotImplementedError("guide-LM keyframing (--resume_trans/--resume_vq) is not ported yet: see ROADMAP")
+    if plot:
+        raise NotImplementedError("the photoreal render (--plot) is not ported yet: see ROADMAP")
+    dev = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    cfgs = load_config(model_path)
+    dcfg: DiffusionConfig = cfgs["diffusion"]
+    datacfg: DataConfig = cfgs["data"]
+    model = load_model(model_path, dev)
+
+    scenes = load_local_data(data_root, datacfg.person)
+    stats = find_stats(os.path.join(data_root, datacfg.person))
+    ds = SocialDataset(scenes, stats, datacfg, "test")
+    sched = maybe_respaced(dcfg.schedule, dcfg.steps, timestep_respacing)
+
+    n = min(num_samples, len(ds))
+    batch = {k: np.stack([ds.get_chunk(i)[k] for i in range(n)]) for k in ds.get_chunk(0)}
+    audio = torch.from_numpy(batch["audio"]).to(dev)
+    kf = torch.from_numpy(batch["keyframes"]).to(dev)
+    kv = torch.from_numpy(batch["keyframe_valid"]).to(dev)
+    B, T, C = batch["motion"].shape
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    if timings is not None:
+        timings.update(encode_s=0.0, ddim_s=0.0)
+
+    all_motions, all_keyframes = [], []
+    for _ in range(num_repetitions):
+        t0 = time.perf_counter()
+        cond = model.encode_conditioning(audio, kf, kv)
+        if timings is not None:
+            _sync(dev)
+            timings["encode_s"] += time.perf_counter() - t0
+        xT = draw_noise((B, T, C), generator, dev)
+        t0 = time.perf_counter()
+        model_fn = cfg_model_fn_cached(model, cond, guidance_param)
+        res = sampling.ddim_sample_loop(sched, dcfg.predict, model_fn, xT)
+        sample = res.pred_xstart.cpu().numpy()  # the reference returns the final pred_xstart
+        if timings is not None:
+            timings["ddim_s"] += time.perf_counter() - t0
+        all_motions.append(stats.inv_pose(sample))
+        all_keyframes.append(stats.inv_pose(batch["keyframes"]))
+
+    out_dir = output_dir or os.path.join(model_path, f"samples_{timestep_respacing}_seed{seed}")
+    os.makedirs(out_dir, exist_ok=True)
+    results = {
+        # reference layout: [B, C, 1, T] (sample/generate.py:146-152)
+        "motions": np.concatenate(all_motions, 0).transpose(0, 2, 1)[:, :, None, :],
+        "gt": stats.inv_pose(batch["motion"]).transpose(0, 2, 1)[:, :, None, :],
+        "audio": stats.inv_audio(batch["audio"]),
+        "lengths": batch["lengths"],
+        "keyframes": np.concatenate(all_keyframes, 0),
+    }
+    out_path = os.path.join(out_dir, "results.npy")
+    np.save(out_path, results)
+    return out_path
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--model_path", required=True, help="checkpoint dir with config.json + model.pt")
+    p.add_argument("--data_root", required=True)
+    p.add_argument("--num_samples", type=int, default=5)
+    p.add_argument("--num_repetitions", type=int, default=1)
+    p.add_argument("--guidance_param", type=float, default=2.0)
+    p.add_argument("--timestep_respacing", default="ddim500")
+    p.add_argument("--resume_trans", default=None, help="guide checkpoint dir (not ported yet)")
+    p.add_argument("--resume_vq", default=None, help="VQ checkpoint dir (not ported yet)")
+    p.add_argument("--seed", type=int, default=10)
+    p.add_argument("--output_dir", default=None)
+    p.add_argument("--plot", action="store_true", help="photoreal render (not ported yet)")
+    p.add_argument("--device", default=None, help="torch device; default cuda when available")
+    args = p.parse_args()
+    out = generate(
+        args.model_path,
+        args.data_root,
+        num_samples=args.num_samples,
+        num_repetitions=args.num_repetitions,
+        guidance_param=args.guidance_param,
+        timestep_respacing=args.timestep_respacing,
+        guide_path=args.resume_trans,
+        vq_path=args.resume_vq,
+        seed=args.seed,
+        output_dir=args.output_dir,
+        plot=args.plot,
+        device=args.device,
+    )
+    print(f"saved {out}")
+
+
+if __name__ == "__main__":
+    main()

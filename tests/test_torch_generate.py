@@ -1,0 +1,132 @@
+"""The pose generate slice, port vs JAX package, on the CPU.
+
+``max_seq_length=128`` with ``flash_attention=True``: both sequence axes
+reach the 128 floor, so the JAX side really runs its Pallas attention kernel
+(interpret mode on the CPU) and the port runs its kernel wrapper (the plain
+version, the tensors being on the CPU).  The same weights go to both sides
+through ``convert.film_denoiser_state_dict_from_jax`` and the same numpy x_T
+is injected; tolerance 1e-4 atol and rtol after DDIM-10.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from audio2photoreal_tpu.apps import generate as j_generate
+from audio2photoreal_tpu.core import config as j_config
+from audio2photoreal_tpu.diffusion import respace as j_respace
+from audio2photoreal_tpu.diffusion import sampling as j_sampling
+from audio2photoreal_tpu.models.cfg import cfg_model_fn_cached as j_cfg_cached
+from audio2photoreal_tpu.models.film_transformer import FiLMDenoiser as JDenoiser
+from audio2photoreal_tpu.ops.pallas import flash as j_flash
+from audio2photoreal_tpu.train import checkpoints
+from audio2photoreal_tpu_torch import convert
+from audio2photoreal_tpu_torch.apps import generate
+from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
+from audio2photoreal_tpu_torch.diffusion import respace, sampling
+from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention_reference
+from audio2photoreal_tpu_torch.models import blocks
+from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn, cfg_model_fn_cached
+
+T = 128
+MODEL = dict(data_format="pose", latent_dim=16, ff_size=32, num_layers=2, num_heads=2,
+             max_seq_length=T, dropout=0.0, flash_attention=True)
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def slice_setup(tmp_path_factory):
+    """A synthetic person, JAX params for the tiny model, and both models' dirs."""
+    root = str(tmp_path_factory.mktemp("slice"))
+    make_synthetic_person(root, "SYNTH01", num_scenes=5, frames_per_scene=T, seed=3)
+    jcfg = j_config.DenoiserConfig(**MODEL)
+    jm = JDenoiser(jcfg)
+    rng = np.random.RandomState(0)
+    B = 2
+    params = jax.jit(jm.init)(
+        {"params": jax.random.PRNGKey(1), "cond_drop": jax.random.PRNGKey(2)},
+        jnp.zeros((B, T, 104)), jnp.zeros((B,), jnp.int32), jnp.zeros((B, T * 1600, 2)),
+        jnp.zeros((B, 5, 104)), jnp.ones((B, 5)),
+    )
+    # nonzero biases and non-identity norms, so every parameter is exercised
+    params = jax.tree_util.tree_map(
+        lambda x: x + 0.1 * rng.randn(*x.shape).astype(np.float32) if x.ndim == 1 else x, params)
+    sections = dict(diffusion=j_config.DiffusionConfig(), data=j_config.DataConfig(
+        person="SYNTH01", max_seq_length=T))
+    j_dir, p_dir = f"{root}/jax_model", f"{root}/port_model"
+    j_config.save_config(j_dir, denoiser=jcfg, **sections)
+    checkpoints.save(f"{j_dir}/ckpt", 0, {"params": params}, block=True)
+    j_config.save_config(p_dir, denoiser=jcfg, **sections)
+    torch.save(convert.film_denoiser_state_dict_from_jax(params, "pose", MODEL["num_layers"]),
+               f"{p_dir}/{generate.MODEL_FILE}")
+    x_T = rng.randn(B, T, 104).astype(np.float32)
+    return dict(root=root, jm=jm, params=params, j_dir=j_dir, p_dir=p_dir, x_T=x_T)
+
+
+def test_encode_cfg_ddim_matches_jax(slice_setup, monkeypatch):
+    s = slice_setup
+    rng = np.random.RandomState(9)
+    audio = rng.randn(2, T * 1600, 2).astype(np.float32)
+    kf = rng.randn(2, 5, 104).astype(np.float32)
+    kv = np.array([[1, 1, 1, 1, 0], [1, 1, 1, 1, 1]], np.float32)
+    jm, params = s["jm"], s["params"]
+
+    @jax.jit
+    def run_jax(a, k, v, x):
+        cond = jm.apply(params, a, k, v, method=JDenoiser.encode_conditioning)
+        fn = j_cfg_cached(jm, params, cond, 2.0)
+        sched = j_respace.maybe_respaced("cosine", 1000, "ddim10")
+        return j_sampling.ddim_sample_loop(sched, "xstart", fn, x, jax.random.PRNGKey(0)).pred_xstart
+
+    j_flash.reset_trace_flops()
+    want = np.asarray(run_jax(*(jnp.asarray(a) for a in (audio, kf, kv, s["x_T"]))))
+    assert j_flash.trace_flops() > 0  # the JAX side went through the Pallas kernel
+    calls = []
+    monkeypatch.setattr(blocks, "flash_attention",
+                        lambda *a: calls.append(a[0].shape) or flash_attention_reference(*a))
+    model = generate.load_model(s["p_dir"], "cpu")
+    with torch.no_grad():
+        cond = model.encode_conditioning(*(torch.from_numpy(a) for a in (audio, kf, kv)))
+        # 1998-token scale: the flash gate is open on both attention axes
+        assert cond.cond_tokens.shape[1] >= 128
+        x_T = torch.from_numpy(s["x_T"])
+        sched = respace.maybe_respaced("cosine", 1000, "ddim10")
+        got = sampling.ddim_sample_loop(sched, "xstart", cfg_model_fn_cached(model, cond, 2.0), x_T)
+        uncached = cfg_model_fn(model, cond, 2.0)(x_T, torch.tensor([999, 999]))
+        cached = cfg_model_fn_cached(model, cond, 2.0)(x_T, torch.tensor([999, 999]))
+    np.testing.assert_allclose(got.pred_xstart.numpy(), want, **TOL)
+    np.testing.assert_allclose(cached.numpy(), uncached.numpy(), atol=2e-5, rtol=2e-5)
+    # self- and audio cross-attention of every layer, every step, through the gate
+    assert len(calls) == MODEL["num_layers"] * 2 * (10 + 2)
+
+
+def test_generate_results_match_jax(slice_setup, monkeypatch, tmp_path):
+    s = slice_setup
+    x_T = s["x_T"]
+
+    def fake_normal(key, shape, dtype=jnp.float32):
+        assert tuple(shape) == x_T.shape
+        return jnp.asarray(x_T, dtype)
+
+    monkeypatch.setattr(jax.random, "normal", fake_normal)
+    monkeypatch.setattr(generate, "draw_noise", lambda shape, g, device: torch.from_numpy(x_T))
+    kw = dict(num_samples=2, guidance_param=2.0, timestep_respacing="ddim10")
+    want = np.load(j_generate.generate(s["j_dir"], s["root"], output_dir=str(tmp_path / "j"), **kw),
+                   allow_pickle=True).item()
+    got = np.load(generate.generate(s["p_dir"], s["root"], output_dir=str(tmp_path / "p"),
+                                    device="cpu", **kw), allow_pickle=True).item()
+    assert sorted(got) == sorted(want) == ["audio", "gt", "keyframes", "lengths", "motions"]
+    assert got["motions"].shape == (2, 104, 1, T)
+    np.testing.assert_allclose(got["motions"], want["motions"], **TOL)
+    for k in ("gt", "audio", "lengths", "keyframes"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_generate_refuses_what_is_not_ported(slice_setup):
+    s = slice_setup
+    for kw in (dict(guide_path="g", vq_path="v"), dict(plot=True)):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            generate.generate(s["p_dir"], s["root"], device="cpu", **kw)
