@@ -14,7 +14,9 @@ Layering:
   kernels/   hand-written CUDA kernels, their build and ctypes binding
   models/    wav2vec frontend, FiLM blocks, pose FiLM denoiser, batched CFG
   diffusion/ schedules, respacing, q/p math, DDIM loop
-  apps/      generate CLI
+  render/    ca_body avatar: LBS, UV geometry, weight-norm layers, decoders,
+             seams, display colour, rasterizer, synthetic assets, video
+  apps/      generate CLI, photoreal render pipeline
   convert.py JAX param tree -> this package's state_dict
 """
 

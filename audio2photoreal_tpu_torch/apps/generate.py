@@ -11,8 +11,13 @@ A checkpoint directory holds ``config.json`` (the JAX package's sidecar
 format) and ``model.pt``, a ``state_dict`` under the reference's names.
 
 Keyframes are the dataset's 1 fps ground-truth poses: guide-LM keyframing
-(``--resume_trans/--resume_vq``), the face branch and the render
-(``--plot``) are not ported yet and raise.
+(``--resume_trans/--resume_vq``) and the face branch are not ported yet and
+raise.  ``--plot`` renders each sample with the photoreal renderer
+(``--renderer_path``, a bundle of ``render/assets.py``) and the face codes of
+a face model's ``results.npy`` (``--face_codes``) made from the same audio.
+
+Everything runs on the card unless ``device`` says otherwise; without a
+card and without ``device`` it raises.
 
 x_T is drawn from a ``torch.Generator`` seeded with ``seed``, so for the
 same seed it differs from the JAX package's ``jax.random`` draw.
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, load_config
+from audio2photoreal_tpu_torch.core.device import resolve_device
 from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
 from audio2photoreal_tpu_torch.data.stats import DataStats
 from audio2photoreal_tpu_torch.diffusion import sampling
@@ -84,6 +90,9 @@ def generate(
     seed: int = 10,
     output_dir: Optional[str] = None,
     plot: bool = False,
+    face_codes: Optional[str] = None,
+    renderer_path: Optional[str] = None,
+    render_gt: bool = False,
     device: Optional[str] = None,
     timings: Optional[Dict[str, float]] = None,
 ) -> str:
@@ -92,9 +101,10 @@ def generate(
     loop, summed over repetitions (the device is synchronised at each)."""
     if guide_path or vq_path:
         raise NotImplementedError("guide-LM keyframing (--resume_trans/--resume_vq) is not ported yet: see ROADMAP")
-    if plot:
-        raise NotImplementedError("the photoreal render (--plot) is not ported yet: see ROADMAP")
-    dev = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    if plot and not (renderer_path and face_codes):
+        raise ValueError("--plot needs --renderer_path (a renderer bundle) and --face_codes "
+                         "(a face model's results.npy)")
+    dev = resolve_device(device)
     cfgs = load_config(model_path)
     dcfg: DiffusionConfig = cfgs["diffusion"]
     datacfg: DataConfig = cfgs["data"]
@@ -144,7 +154,60 @@ def generate(
     }
     out_path = os.path.join(out_dir, "results.npy")
     np.save(out_path, results)
+    if plot:
+        _render_pred(
+            results,
+            face_codes_path=face_codes,
+            renderer_path=renderer_path,
+            out_dir=out_dir,
+            num_samples=n,
+            num_repetitions=num_repetitions,
+            render_gt=render_gt,
+            audio_per_frame=datacfg.audio_per_frame,
+            device=dev,
+        )
     return out_path
+
+
+def _render_pred(
+    results: dict,
+    *,
+    face_codes_path: str,
+    renderer_path: str,
+    out_dir: str,
+    num_samples: int,
+    num_repetitions: int,
+    render_gt: bool,
+    audio_per_frame: int = 1600,
+    device=None,
+) -> None:
+    """Photoreal-render the generated motion (reference sample/generate.py:
+    155-207): pair each pose sample with its face-codes sample, check that
+    both were made from the same audio, and write the per-sample video(s)."""
+    from audio2photoreal_tpu_torch.apps.render_pipeline import load_body_renderer
+
+    face_res = np.load(face_codes_path, allow_pickle=True).item()
+    face_motions, face_gts, face_audio = face_res["motions"], face_res.get("gt"), face_res["audio"]
+    renderer = load_body_renderer(renderer_path, device=device)
+    for sample_i in range(num_samples):
+        for rep_i in range(num_repetitions):
+            idx = rep_i * num_samples + sample_i
+            length = int(results["lengths"][idx])
+            # face and pose runs must be conditioned on the same audio (:187-189)
+            if not np.array_equal(results["audio"][idx], face_audio[idx]):
+                raise ValueError(f"sample {idx}: the face codes were made from other audio")
+            block = {
+                "audio": results["audio"][idx][: length * audio_per_frame],
+                "body_motion": results["motions"][idx].transpose(2, 0, 1)[:length].squeeze(-1),
+                "face_motion": face_motions[idx].transpose(2, 0, 1)[:length].squeeze(-1),
+            }
+            if render_gt:
+                block["gt_body"] = results["gt"][idx].transpose(2, 0, 1)[:length].squeeze(-1)
+                block["gt_face"] = face_gts[idx].transpose(2, 0, 1)[:length].squeeze(-1)
+            save_base = os.path.join(out_dir, f"sample{sample_i:02d}_rep{rep_i:02d}")
+            renderer.render_full_video(block, save_base, render_gt=False)
+            if render_gt:
+                renderer.render_full_video(block, save_base, render_gt=True)
 
 
 def main():
@@ -159,8 +222,11 @@ def main():
     p.add_argument("--resume_vq", default=None, help="VQ checkpoint dir (not ported yet)")
     p.add_argument("--seed", type=int, default=10)
     p.add_argument("--output_dir", default=None)
-    p.add_argument("--plot", action="store_true", help="photoreal render (not ported yet)")
-    p.add_argument("--device", default=None, help="torch device; default cuda when available")
+    p.add_argument("--plot", action="store_true", help="photoreal-render the samples")
+    p.add_argument("--face_codes", default=None, help="face model results.npy for --plot")
+    p.add_argument("--renderer_path", default=None, help="renderer bundle dir for --plot")
+    p.add_argument("--render_gt", action="store_true", help="also render the ground truth")
+    p.add_argument("--device", default=None, help="torch device (default: cuda; raises without one)")
     args = p.parse_args()
     out = generate(
         args.model_path,
@@ -174,6 +240,9 @@ def main():
         seed=args.seed,
         output_dir=args.output_dir,
         plot=args.plot,
+        face_codes=args.face_codes,
+        renderer_path=args.renderer_path,
+        render_gt=args.render_gt,
         device=args.device,
     )
     print(f"saved {out}")

@@ -1,7 +1,8 @@
 """JAX param tree -> this package's state_dict.
 
 The inverse of ``audio2photoreal_tpu/train/convert.py:convert_film_denoiser``
-(with ``convert_wav2vec_extractor`` for the bundled frontend): the port's
+(with ``convert_wav2vec_extractor`` for the bundled frontend) and of
+``convert_body_avatar`` (the ca_body render avatar): the port's
 modules keep the torch reference's state-dict names, so the same mapping
 read backwards carries weights trained by the JAX package into the port.
 
@@ -9,6 +10,9 @@ read backwards carries weights trained by the JAX package into the port.
 - q/k/v Dense kernels -> packed ``in_proj_weight`` [3D, D] / ``in_proj_bias``
 - conv kernel [K, Cin, Cout] -> Conv1d weight [Cout, Cin, K]
 - LayerNorm / group norm scale, bias -> weight, bias
+- weight-norm {v, g, bias} -> ``weight_v`` / ``weight_g`` / ``bias``, conv
+  kernels [kh, kw, Cin, Cout] -> [Cout, Cin, kh, kw], untied biases
+  [H, W, C] -> [C, H, W]
 """
 
 from __future__ import annotations
@@ -105,4 +109,153 @@ def film_denoiser_state_dict_from_jax(
         sd.update(wav2vec_extractor_state_dict_from_jax(
             p["audio_frontend"]["feature_extractor"], "audio_model.feature_extractor"
         ))
+    return sd
+
+
+# --------------------------------------------------------------------- #
+# ca_body codec avatar (BodyAvatar)
+# --------------------------------------------------------------------- #
+
+
+def _chw_to_hwc_perm(c: int, h: int, w: int) -> np.ndarray:
+    """perm[i_hwc] = i_chw: the JAX package's NHWC flat index → torch's."""
+    return np.arange(c * h * w).reshape(c, h, w).transpose(1, 2, 0).reshape(-1)
+
+
+def _wn_linear(sd: StateDict, prefix: str, p: Mapping[str, Any], chw_out=None, chw_in=None) -> None:
+    """{v [in, out], g, bias} → LinearWN weight_v [out, in], weight_g [out, 1].
+
+    ``chw_out``: the output is reshaped to a [C, H, W] block (torch c-major,
+    JAX hwc-major); ``chw_in``: the first C·H·W inputs are a flattened
+    [C, H, W] map.  Inverse of ``wn_linear_spatial_out`` / ``_in``."""
+    v, g, b = (np.asarray(p[k], np.float32) for k in ("v", "g", "bias"))
+    if chw_out is not None:
+        perm = _chw_to_hwc_perm(*chw_out)
+        v2, g2, b2 = np.empty_like(v), np.empty_like(g), np.empty_like(b)
+        v2[:, perm], g2[perm], b2[perm] = v, g, b
+        v, g, b = v2, g2, b2
+    if chw_in is not None:
+        perm = _chw_to_hwc_perm(*chw_in)
+        v2 = v.copy()
+        v2[perm] = v[: perm.size]
+        v = v2
+    sd[f"{prefix}.weight_v"] = _a(v.T)
+    sd[f"{prefix}.weight_g"] = _a(g.reshape(-1, 1))
+    sd[f"{prefix}.bias"] = _a(b)
+
+
+def _wn_conv(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    """{v [kh, kw, Cin/g, Cout], g, bias} → weight_v [Cout, Cin/g, kh, kw];
+    an untied bias [H, W, C] → [C, H, W]."""
+    sd[f"{prefix}.weight_v"] = _a(np.asarray(p["v"]).transpose(3, 2, 0, 1))
+    sd[f"{prefix}.weight_g"] = _a(np.asarray(p["g"]).reshape(-1, 1, 1, 1))
+    b = np.asarray(p["bias"])
+    sd[f"{prefix}.bias"] = _a(b.transpose(2, 0, 1) if b.ndim == 3 else b)
+
+
+def _wn_convt(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    """{v [kh, kw, Cout, Cin], g, bias [H, W, Cout]} → weight_v [Cin, Cout,
+    kh, kw], weight_g [1, Cout, 1, 1], bias [Cout, H, W]."""
+    sd[f"{prefix}.weight_v"] = _a(np.asarray(p["v"]).transpose(3, 2, 0, 1))
+    sd[f"{prefix}.weight_g"] = _a(np.asarray(p["g"]).reshape(1, -1, 1, 1))
+    sd[f"{prefix}.bias"] = _a(np.asarray(p["bias"]).transpose(2, 0, 1))
+
+
+def _conv_block(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    for n in ("conv_resize", "conv1", "conv2"):
+        _wn_conv(sd, f"{prefix}.{n}", p[n])
+
+
+def unet_wb_state_dict(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    """UNetWB: ``down{i}.0`` / ``up{i}.0`` / ``out`` (ca_body/nn/unet.py:16-97)."""
+    for i in range(1, 6):
+        _wn_conv(sd, f"{prefix}.down{i}.0", p[f"down{i}"])
+        _wn_convt(sd, f"{prefix}.up{i}.0", p[f"up{i}"])
+    _wn_conv(sd, f"{prefix}.out", p["out"])
+
+
+def shadow_unet_state_dict(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    """ShadowUNet: ``enc_layers.{i}.0`` / ``dec_layers.{i}.0`` / ``shadow_pred``."""
+    for i in range(4):
+        _wn_conv(sd, f"{prefix}.enc_layers.{i}.0", p[f"enc{i}"])
+        _wn_conv(sd, f"{prefix}.dec_layers.{i}.0", p[f"dec{i}"])
+    _wn_conv(sd, f"{prefix}.shadow_pred", p["shadow_pred"])
+
+
+def pose_to_shadow_state_dict(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    """PoseToShadow: ``fc_block.0`` (a [256, 4, 4] output) + ``conv_block.{2i}``."""
+    _wn_linear(sd, f"{prefix}.fc_block.0", p["fc_block"], chw_out=(256, 4, 4))
+    for i in range(5):
+        _wn_convt(sd, f"{prefix}.conv_block.{2 * i}", p[f"conv{i}"])
+
+
+def face_decoder_state_dict(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    """FaceDecoderFrontal: ``encmod.0`` ... ``texmod.{2i}``, ``bias`` [3, T, T]."""
+    for n in ("encmod", "geommod", "viewmod"):
+        _wn_linear(sd, f"{prefix}.{n}.0", p[n])
+    _wn_linear(sd, f"{prefix}.texmod2.0", p["texmod2"], chw_out=(256, 4, 4))
+    sd[f"{prefix}.bias"] = _a(np.asarray(p["bias"]).transpose(2, 0, 1))
+    i = 0
+    while f"texmod_up{i}" in p:
+        _wn_convt(sd, f"{prefix}.texmod.{2 * i}", p[f"texmod_up{i}"])
+        i += 1
+
+
+def upscale_net_state_dict(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    """The avatar's UpscaleNet: ``conv_block.0`` + ``out_block``."""
+    _wn_conv(sd, f"{prefix}.conv_block.0", p["conv_block0"])
+    _wn_conv(sd, f"{prefix}.out_block", p["out_block"])
+
+
+def body_avatar_state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict:
+    """BodyAvatar params (``{"params": ...}`` or the inner tree) → the port's
+    state_dict under the ca_body names that
+    ``audio2photoreal_tpu/train/convert.py:convert_body_avatar`` reads.
+
+    Block counts follow ``cfg`` (a RendererConfig of either package), so
+    the small test configs convert as well as the production one.  The
+    JAX tree has ``shadow_net`` only when its init ran the shadow UNet."""
+    import math
+
+    from audio2photoreal_tpu_torch.render.mesh_vae import _embs_plan, _face_plan
+
+    p = params["params"] if "params" in params else params
+    sd: StateDict = {}
+    enc = p["encoder"]
+    _conv_block(sd, "encoder.verts_conv", enc["verts_conv"])
+    for i in range(int(math.log2(cfg.encoder_in_size // 4)) - 1):
+        _conv_block(sd, f"encoder.joint_conv_blocks.{i}", enc[f"joint{i}"])
+    for n in ("mu", "logvar"):
+        _wn_linear(sd, f"encoder.{n}", enc[n], chw_in=(128, 4, 4))
+
+    fenc = p["encoder_face"]
+    for i in range(int(math.log2(cfg.encoder_in_size // 4))):
+        _conv_block(sd, f"encoder_face.conv_blocks.{i}", fenc[f"conv{i}"])
+    _wn_linear(sd, "encoder_face.geommod.0", fenc["geommod"])
+    _wn_linear(sd, "encoder_face.jointmod.0", fenc["jointmod"], chw_in=(128, 4, 4))
+    _wn_linear(sd, "encoder_face.mu", fenc["mu"])
+    _wn_linear(sd, "encoder_face.logvar", fenc["logvar"])
+
+    face_decoder_state_dict(sd, "decoder_face", p["decoder_face"])
+
+    dec = p["decoder"]
+    S0 = cfg.init_uv_size
+    _conv_block(sd, "decoder.local_pose_conv_block", dec["local_pose_conv_block"])
+    _wn_linear(sd, "decoder.embs_fc.0", dec["embs_fc"], chw_out=(128, 4, 4))
+    _wn_linear(sd, "decoder.face_embs_fc.0", dec["face_embs_fc"], chw_out=(32, 4, 4))
+    for i in range(len(_embs_plan(S0, cfg.n_embs_enc_channels))):
+        _conv_block(sd, f"decoder.embs_conv_block.{i}", dec[f"embs_conv{i}"])
+    for i in range(len(_face_plan(S0, cfg.n_embs_enc_channels))):
+        _conv_block(sd, f"decoder.face_embs_conv_block.{i}", dec[f"face_embs_conv{i}"])
+    _conv_block(sd, "decoder.joint_conv_block", dec["joint_conv_block"])
+    for b in range(int(math.log2(cfg.uv_size // S0))):
+        _conv_block(sd, f"decoder.conv_blocks.{b}", dec[f"up{b}"])
+    _wn_conv(sd, "decoder.verts_conv", dec["verts_conv"])
+    _wn_conv(sd, "decoder.tex_conv", dec["tex_conv"])
+
+    unet_wb_state_dict(sd, "decoder_view.unet", p["decoder_view"]["unet"])
+    if "shadow_net" in p:
+        shadow_unet_state_dict(sd, "shadow_net", p["shadow_net"])
+    pose_to_shadow_state_dict(sd, "pose_to_shadow", p["pose_to_shadow"])
+    upscale_net_state_dict(sd, "upscale_net", p["upscale_net"])
     return sd

@@ -5,16 +5,19 @@ so it also runs where JAX is not installed, without the JAX-side conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances with TF32 off: f32 1e-5 for unit-normal inputs, bf16 2e-2.
+Tolerances with TF32 off: attention f32 1e-5 for unit-normal inputs, bf16
+2e-2; the rasterizer's face ids and coverage exactly, depth / UV /
+barycentrics 1e-5; rendered uint8 frames within one count.
 """
 
 import pytest
 import torch
 
 from audio2photoreal_tpu_torch.core.config import DenoiserConfig
-from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts
+from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts, raster
 from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention, flash_attention_reference
 from audio2photoreal_tpu_torch.models.film_transformer import CondTokens, FiLMDenoiser
+from audio2photoreal_tpu_torch.render.geometry import project_points
 
 
 @pytest.fixture
@@ -82,3 +85,140 @@ def test_denoiser_kernel_path_matches_plain_path(cuda):
         want = model.denoise(x, t, cond, keep)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------------------------- raster -- #
+
+RASTER_TOL = 1e-5  # depth / UV / barycentrics; face ids and coverage exactly
+
+
+def _raster_equal(got, want):
+    assert torch.equal(got.face_index, want.face_index)
+    cov = want.face_index >= 0
+    assert torch.isinf(got.depth[~cov]).all()
+    assert (got.depth[cov] - want.depth[cov]).abs().max().item() <= RASTER_TOL
+    for name in ("uv", "barys"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert (a - b).abs().max().item() <= RASTER_TOL
+
+
+@pytest.fixture(scope="module")
+def mesh10():
+    """The mesh_density=10 synthetic body (9,322 faces) posed by 4 random
+    poses and seen by the synthetic rig's 2 cameras: [8, V] projected
+    vertices at 1024x667."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets, synthetic_rig
+    from audio2photoreal_tpu_torch.render.mesh_vae import RendererConfig
+
+    assets = make_synthetic_assets(RendererConfig(uv_size=256, upscale_size=512), mesh_density=10).to("cuda")
+    rng = np.random.RandomState(0)
+    verts = assets.lbs.pose(None, torch.from_numpy((rng.randn(4, 104) * 0.3).astype(np.float32)).to("cuda"))
+    pix, dep = [], []
+    for cam in synthetic_rig((0.0, 0.0, 1.0), 1024, 667).values():
+        K, Rt = (torch.from_numpy(a).to("cuda") for a in (cam.K, cam.Rt))
+        p, d = project_points(verts, K.expand(4, 3, 3), Rt.expand(4, 3, 4))
+        pix.append(p)
+        dep.append(d)
+    geo = assets.geo
+    return dict(pix=torch.stack(pix, 1).flatten(0, 1).contiguous(), dep=torch.stack(dep, 1).flatten(0, 1).contiguous(),
+                faces=geo.faces, face_uv=geo.uv_coords[geo.uv_faces].contiguous(), H=1024, W=667)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit_barys", [True, False])
+def test_raster_kernel_matches_plain_at_the_full_image(cuda, mesh10, emit_barys):
+    m = mesh10
+    args = (m["pix"][:2], m["dep"][:2], m["faces"], m["H"], m["W"], m["face_uv"], emit_barys)
+    before = launch_counts[raster.NAME]
+    got = raster.rasterize_cuda(*args)
+    assert launch_counts[raster.NAME] == before + 1
+    want = raster.rasterize_reference(*args)
+    _raster_equal(got, want)
+    assert 0.02 < (want.face_index >= 0).float().mean().item() < 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,n_faces", [(61, 77, 300), (1, 1, 5), (17, 300, 64), (1024, 667, 2000)])
+def test_raster_kernel_matches_plain_on_ragged_random_meshes(cuda, H, W, n_faces):
+    import numpy as np
+
+    rng = np.random.RandomState(H + W)
+    pix = (rng.rand(2, 40, 2) * [W + 20, H + 20] - 10).astype(np.float32)
+    dep = (rng.rand(2, 40) * 4 + 0.5).astype(np.float32)
+    pix[:, 33] = pix[:, 30]  # face 15 sits where faces 10 and 20 do: exact ties
+    dep[:, 33] = dep[:, 30]
+    faces = rng.randint(0, 30, (n_faces, 3))
+    faces[min(10, n_faces - 1)] = faces[min(20, n_faces - 1)] = [30, 31, 32]
+    faces[min(15, n_faces - 1)] = [33, 31, 32]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    face_uv = t(rng.rand(n_faces, 3, 2).astype(np.float32))
+    args = (t(pix), t(dep), t(faces.astype(np.int64)), H, W, face_uv, True)
+    _raster_equal(raster.rasterize_cuda(*args), raster.rasterize_reference(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 24, 32])
+def test_raster_kernel_runs_large_frame_batches(cuda, mesh10, B):
+    """The TPU kernel faults at frame batch 24 and 32; here every frame of a
+    batch of B equals the batch-8 result for its pose."""
+    m = mesh10
+    ref = raster.rasterize_cuda(m["pix"], m["dep"], m["faces"], m["H"], m["W"], m["face_uv"], False)
+    idx = torch.arange(B, device=cuda) % 8
+    got = raster.rasterize_cuda(m["pix"][idx], m["dep"][idx], m["faces"], m["H"], m["W"], m["face_uv"], False)
+    torch.cuda.synchronize()
+    for k in ("face_index", "depth", "uv"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)[idx])
+
+
+@pytest.mark.cuda
+def test_raster_kernel_rejects_what_it_does_not_take(cuda):
+    pix = torch.rand(1, 3, 2, device=cuda)
+    dep = torch.ones(1, 3, device=cuda)
+    faces = torch.tensor([[0, 1, 2]], device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        raster.rasterize_cuda(pix.double(), dep, faces, 4, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        raster.rasterize_cuda(pix.cpu(), dep.cpu(), faces.cpu(), 4, 4)
+
+
+@pytest.mark.cuda
+def test_body_renderer_card_matches_cpu(cuda):
+    """A small avatar through render_sequence_multicam on the card (raster
+    kernel) and on the CPU (plain version): uint8 within one count."""
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.apps.render_pipeline import BodyRenderer, Camera
+    from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets
+    from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar, RendererConfig
+
+    cfg = RendererConfig(uv_size=64, init_uv_size=16, upscale_size=128, n_embs=32, n_pose_enc_channels=8,
+                         n_embs_enc_channels=8, n_init_channels=16, n_min_channels=4, shadow_size=32,
+                         view_unet_ftrs=4, encoder_in_size=64, face_tex_size=64, n_face_verts=64,
+                         image_height=96, image_width=64)
+    assets = make_synthetic_assets(cfg)
+    model = BodyAvatar(cfg, assets)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    K = np.array([[80.0, 0, 32], [0, 80.0, 48], [0, 0, 1]], np.float32)
+    cams = {n: Camera(campos=np.array([dx, -3.0, 1.0], np.float32), K=K,
+                      Rt=np.array([[1, 0, 0, -dx], [0, 0, -1, 1], [0, 1, 0, 3]], np.float32))
+            for n, dx in (("cam0", 0.0), ("cam1", 0.5))}
+    rng = np.random.RandomState(1)
+    pose = (rng.randn(5, 104) * 0.1).astype(np.float32)
+    face = (rng.randn(5, 256) * 0.1).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        before = launch_counts[raster.NAME]
+        out[dev] = BodyRenderer(cfg, assets, model.state_dict(), cams, frame_batch=4,
+                                device=dev).render_sequence_multicam(pose, face)
+        if dev == "cuda":
+            assert launch_counts[raster.NAME] - before == 2 * 2  # 2 frame batches x 2 cameras
+    diff = np.abs(out["cuda"].astype(int) - out["cpu"].astype(int))
+    either = out["cuda"].any(-1) | out["cpu"].any(-1)
+    assert (diff.max(-1) <= 1)[either].mean() >= 0.999
+    assert (out["cuda"].any(-1) == out["cpu"].any(-1)).mean() >= 0.999

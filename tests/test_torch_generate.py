@@ -127,6 +127,9 @@ def test_generate_results_match_jax(slice_setup, monkeypatch, tmp_path):
 
 def test_generate_refuses_what_is_not_ported(slice_setup):
     s = slice_setup
-    for kw in (dict(guide_path="g", vq_path="v"), dict(plot=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            generate.generate(s["p_dir"], s["root"], device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        generate.generate(s["p_dir"], s["root"], device="cpu", guide_path="g", vq_path="v")
+    # the render is ported; it refuses to start without its two inputs
+    for kw in (dict(), dict(renderer_path="r"), dict(face_codes="f")):
+        with pytest.raises(ValueError, match="--plot needs"):
+            generate.generate(s["p_dir"], s["root"], device="cpu", plot=True, **kw)
