@@ -2,9 +2,10 @@
 
 Each library is compiled by ``nvcc`` into a shared object with a plain C
 interface, at its first use, under ``build/torch_kernels/`` at the root of
-the checkout.  The file name carries a hash of the sources and the compiler
-flags, so an edit to a source builds a new library and a stale one is never
-loaded.  Nothing here runs when the package is imported.
+the checkout.  The file name carries a hash of the sources, the shared
+headers (``csrc/*.cuh``) and the compiler flags, so an edit to any of them
+builds a new library and a stale one is never loaded.  Nothing here runs
+when the package is imported.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def _nvcc() -> str:
 def library_path(name: str, sources: Sequence[str]) -> Path:
     """Where the library for these sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))):
         h.update(src.encode())
         h.update((CSRC / src).read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

@@ -22,6 +22,13 @@
 // specialisation) is later work.  Shared-memory rows of Q and K are padded by
 // one float so the 8 lanes that share a row group read 8 distinct banks.
 //
+// Training adds two things.  Dropout of the probabilities, replayed from the
+// JAX package's hash (attn_common.cuh): the row sum l takes the undropped
+// probabilities and P.V the dropped ones, as _attn_kernel does (flash.py:
+// 146-154), so the output is (softmax o M) v.  And, when the caller passes a
+// buffer, the per-row log-sum-exp m + log(l) in f32, which the backward
+// (flash_attn_bwd.cu) uses to recompute the probabilities.
+//
 // Ragged Tq/Tk edges are masked in the kernel: rows past Tq are computed on
 // zeros and not stored, keys past Tk get -inf (they do not exist), masked keys
 // get the JAX package's -1e9 (kv_valid adds it, causal replaces the logit with
@@ -33,7 +40,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_common.cuh"
+
 namespace {
+
+using attn::Dropout;
+using attn::from_float;
+using attn::NEG_BIAS;
+using attn::to_float;
 
 constexpr int BQ = 64;          // q rows per block
 constexpr int BK = 64;          // keys per K/V tile
@@ -41,19 +55,6 @@ constexpr int THREADS = 128;    // 16 row groups x 8 column lanes
 constexpr int LANES = 8;        // threads that share one row group
 constexpr int ROWS = 4;         // q rows per thread (16 groups x 4 = BQ)
 constexpr int KCOLS = BK / LANES;  // key columns per thread
-constexpr float NEG_BIAS = -1e9f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -64,7 +65,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const float* __restrict__ kv_valid, T* __restrict__ out,
-                int H, int Tq, int Tk, int causal, float scale) {
+                float* __restrict__ lse, int H, int Tq, int Tk, int causal, float scale,
+                Dropout drop) {
   constexpr int LD = D + 1;
   constexpr int LDP = BK + 1;
   constexpr int OCOLS = D / LANES;  // output columns per thread
@@ -92,10 +94,12 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 
   float m[ROWS], l[ROWS], acc[ROWS][OCOLS];
+  uint32_t row_term[ROWS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
+    row_term[i] = drop.on ? attn::mask_row_term(drop, bh, q0 + row0 + i) : 0u;
 #pragma unroll
     for (int c = 0; c < OCOLS; ++c) acc[i][c] = 0.f;
   }
@@ -160,8 +164,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 #pragma unroll
       for (int j = 0; j < KCOLS; ++j) {
         const float p = expf(s[i][j] - m_new);
-        s[i][j] = p;
-        rs += p;
+        rs += p;  // the row sum takes the undropped probabilities
+        s[i][j] = drop.on ? p * attn::mask_mult(drop, row_term[i], k0 + lane + LANES * j) : p;
       }
 #pragma unroll
       for (int off = 1; off < LANES; off <<= 1)
@@ -194,6 +198,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     const int gq = q0 + row0 + i;
     if (gq >= Tq) continue;
     const float inv = 1.f / l[i];
+    if (lse != nullptr && lane == 0) lse[(size_t)bh * Tq + gq] = m[i] + logf(l[i]);
     T* o = out + ((size_t)bh * Tq + gq) * D;
 #pragma unroll
     for (int c = 0; c < OCOLS; ++c) o[lane + LANES * c] = from_float<T>(acc[i][c] * inv);
@@ -202,7 +207,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kv_valid, void* out,
-           int B, int H, int Tq, int Tk, int causal, cudaStream_t stream) {
+           float* lse, int B, int H, int Tq, int Tk, int causal, const Dropout& drop,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -211,25 +217,35 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid, vo
   const float scale = (float)(1.0 / sqrt((double)D));
   attn_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(kv_valid), static_cast<T*>(out), H, Tq, Tk, causal, scale);
+      static_cast<const float*>(kv_valid), static_cast<T*>(out), lse, H, Tq, Tk, causal, scale,
+      drop);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B,H,Tq,D], k/v [B,H,Tk,D], out [B,H,Tq,D], all contiguous and of one
-// dtype (0 = float32, 1 = bfloat16); kv_valid [B,Tk] float32 or null.
-// Returns a cudaError_t: 0 when the launch was accepted.
+// dtype (0 = float32, 1 = bfloat16); kv_valid [B,Tk] float32 or null; lse
+// [B,H,Tq] float32, or null for no log-sum-exp.  dropout != 0 drops the
+// probabilities with the mask of (seed, threshold, mult, bq, nj) described in
+// attn_common.cuh.  Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
-                              const void* kv_valid, void* out, int B, int H, int Tq,
-                              int Tk, int D, int dtype, int causal, void* stream) {
+                              const void* kv_valid, void* out, void* lse, int B, int H,
+                              int Tq, int Tk, int D, int dtype, int causal, int dropout,
+                              unsigned int seed, unsigned int threshold, float mult, int bq,
+                              int nj, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || B * H > 65535) return (int)cudaErrorInvalidValue;
+  if (dropout && (bq < 1 || nj != (Tq + bq - 1) / bq)) return (int)cudaErrorInvalidValue;
+  const Dropout drop{dropout, seed, threshold, mult, bq, nj};
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch<float, 64>(q, k, v, kv_valid, out, B, H, Tq, Tk, causal, s);
-  if (dtype == 0 && D == 128) return launch<float, 128>(q, k, v, kv_valid, out, B, H, Tq, Tk, causal, s);
+  if (dtype == 0 && D == 64)
+    return launch<float, 64>(q, k, v, kv_valid, out, l, B, H, Tq, Tk, causal, drop, s);
+  if (dtype == 0 && D == 128)
+    return launch<float, 128>(q, k, v, kv_valid, out, l, B, H, Tq, Tk, causal, drop, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, kv_valid, out, B, H, Tq, Tk, causal, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, kv_valid, out, l, B, H, Tq, Tk, causal, drop, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, kv_valid, out, B, H, Tq, Tk, causal, s);
+    return launch<__nv_bfloat16, 128>(q, k, v, kv_valid, out, l, B, H, Tq, Tk, causal, drop, s);
   return (int)cudaErrorInvalidValue;
 }

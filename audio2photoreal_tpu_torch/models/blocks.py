@@ -10,20 +10,70 @@ checkpoint loads as it is.
 Rotary is applied to the FULL d_model before the q/k projections, as the
 reference does (transformer_modules.py:88,238,252-253).
 
-Inference only: dropout is the identity at sampling time and is left out.
+Dropout follows the JAX package: attention-prob dropout (in the attention
+kernel, or Bernoulli on the plain path), after the feed-forward's GELU, and
+on every sublayer output before its FiLM gate.  It is active in training
+mode (``nn.Module.training``) and draws from the ``generator`` handed down
+the call: one seed per call site, as the JAX package folds one key per site.
+With ``hash_dropout`` the masks are ``hash_drop_mult``'s position hash, else
+Bernoulli draws.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention
+from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention, hash_bits
 from audio2photoreal_tpu_torch.ops.attention import dot_product_attention
 from audio2photoreal_tpu_torch.ops.rotary import RotaryTable, apply_rotary
+
+INT32_MAX = 2**31 - 1
+
+
+def draw_seed(generator: Optional[torch.Generator], high: int = INT32_MAX) -> int:
+    """One seed in [0, high) from ``generator`` (a CPU generator, so the draw
+    costs the card nothing; None takes torch's default generator)."""
+    return int(torch.randint(0, high, (), generator=generator))
+
+
+def device_generator(generator: Optional[torch.Generator], device) -> torch.Generator:
+    """A generator on ``device`` seeded from one draw of ``generator``."""
+    return torch.Generator(device=device).manual_seed(draw_seed(generator))
+
+
+def hash_drop_mult(seed: int, shape, rate: float, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The JAX package's ``hash_drop_mult`` (models/blocks.py:56) for a uint32
+    ``seed``: Bernoulli(1 - rate) multiplier, 0 or 1/(1 - rate) in ``dtype``,
+    from a position hash of (seed, flat index).  Its mix is the flash mask's
+    with block 0, the flat index as the row and column 0."""
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(shape)
+    keep = (hash_bits(seed, 0, idx, 0) >= int(rate * 2**32)).to(dtype)
+    one = torch.ones((), dtype=dtype, device=device)
+    return keep * (one / torch.tensor(1.0 - rate, dtype=dtype, device=device))
+
+
+class Dropout(nn.Module):
+    """The JAX package's ``make_dropout`` (models/blocks.py:96):
+    ``HashDropout`` (:81) with ``hash_dropout``, else ``nn.Dropout``'s
+    Bernoulli draw.  The identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float, hash_dropout: bool = False):
+        super().__init__()
+        self.rate, self.hash_dropout = rate, hash_dropout
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.hash_dropout:
+            seed = draw_seed(generator, 2**32)
+            return x * hash_drop_mult(seed, x.shape, self.rate, x.dtype, x.device)
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.rate, generator=device_generator(generator, x.device))
+        return x * keep / (1.0 - self.rate)
 
 
 class DenseFiLM(nn.Module):
@@ -48,15 +98,17 @@ class MultiHeadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (packed ``in_proj_weight``
     [3D, D] for q, k, v and ``out_proj``) with separate q / kv inputs.
 
-    ``flash=True`` sends the attention through the CUDA kernel
+    ``flash=True`` sends the attention through the CUDA kernels
     (``kernels/flash_attn.py``) when there is no bias and both sequence axes
-    reach ``FLASH_MIN_LEN``, exactly the JAX package's gate."""
+    reach ``FLASH_MIN_LEN``, exactly the JAX package's gate.  In training,
+    ``dropout`` drops attention probabilities: inside the kernels from one
+    int32 seed per call (blocks.py:184), else by a Bernoulli draw."""
 
     FLASH_MIN_LEN = 128
 
-    def __init__(self, dim: int, heads: int, flash: bool = False):
+    def __init__(self, dim: int, heads: int, flash: bool = False, dropout: float = 0.0):
         super().__init__()
-        self.dim, self.heads, self.flash = dim, heads, flash
+        self.dim, self.heads, self.flash, self.dropout = dim, heads, flash, dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
@@ -80,18 +132,26 @@ class MultiHeadAttention(nn.Module):
         k: torch.Tensor,  # [B, Tk, D] (already projected)
         v: torch.Tensor,
         bias: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         q = self._proj(q_in, 0)
         B, Tq, _ = q.shape
+        rate = self.dropout if self.training else 0.0
         if self.flash and bias is None and min(Tq, k.shape[1]) >= self.FLASH_MIN_LEN:
-            out = flash_attention(*(self._split(x).contiguous() for x in (q, k, v)))
+            qkv = [self._split(x).contiguous() for x in (q, k, v)]
+            if rate > 0.0:
+                out = flash_attention(*qkv, None, False, rate, draw_seed(generator))
+            else:
+                out = flash_attention(*qkv)
         else:
-            out = dot_product_attention(self._split(q), self._split(k), self._split(v), bias)
+            gen = device_generator(generator, q.device) if rate > 0.0 else None
+            out = dot_product_attention(self._split(q), self._split(k), self._split(v), bias, rate, gen)
         return self.out_proj(out.transpose(1, 2).reshape(B, Tq, self.dim))
 
-    def forward(self, q_in, k_in, v_in, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, q_in, k_in, v_in, bias: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         k, v = self.project_kv(k_in, v_in)
-        return self.attend(q_in, k, v, bias)
+        return self.attend(q_in, k, v, bias, generator)
 
 
 def _maybe_rotate(x: torch.Tensor, rotary: Optional[RotaryTable]) -> torch.Tensor:
@@ -103,11 +163,11 @@ class FiLMDecoderLayer(nn.Module):
     -> FiLM], feed-forward -> FiLM; all pre-norm with residuals."""
 
     def __init__(self, dim: int, heads: int, ff_size: int, use_cm: bool = False,
-                 flash: bool = False):
+                 flash: bool = False, dropout: float = 0.0, hash_dropout: bool = False):
         super().__init__()
         self.use_cm = use_cm
-        self.self_attn = MultiHeadAttention(dim, heads, flash)
-        self.multihead_attn = MultiHeadAttention(dim, heads, flash)
+        self.self_attn = MultiHeadAttention(dim, heads, flash, dropout)
+        self.multihead_attn = MultiHeadAttention(dim, heads, flash, dropout)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
@@ -116,9 +176,11 @@ class FiLMDecoderLayer(nn.Module):
         self.film3 = DenseFiLM(dim)
         self.linear1 = nn.Linear(dim, ff_size)
         self.linear2 = nn.Linear(ff_size, dim)
+        self.ff_drop = Dropout(dropout, hash_dropout)  # after the GELU
+        self.drop = Dropout(dropout, hash_dropout)  # on each sublayer output
         if use_cm:
             # the keyframe memory is ~20 tokens: never built with the kernel
-            self.multihead_attn2 = MultiHeadAttention(dim, heads)
+            self.multihead_attn2 = MultiHeadAttention(dim, heads, dropout=dropout)
             self.norm2a = nn.LayerNorm(dim, eps=1e-5)
             self.film2a = DenseFiLM(dim)
 
@@ -130,21 +192,24 @@ class FiLMDecoderLayer(nn.Module):
         # the denoiser projects all layers' cross K/V over the shared memory at once
         memory2: torch.Tensor,  # [B, Tk, D] keyframe tokens (use_cm layers)
         rotary: Optional[RotaryTable] = None,
+        generator: Optional[torch.Generator] = None,  # dropout draws (training)
     ) -> torch.Tensor:
+        g = generator
         h = self.norm1(x)
         qk = _maybe_rotate(h, rotary)
-        h = self.self_attn(qk, qk, h)
+        h = self.drop(self.self_attn(qk, qk, h, generator=g), g)
         x = x + featurewise_affine(h, self.film1(t))
 
         h = self.norm2(x)
-        h = self.multihead_attn.attend(_maybe_rotate(h, rotary), *cross_kv)
+        h = self.drop(self.multihead_attn.attend(_maybe_rotate(h, rotary), *cross_kv, generator=g), g)
         x = x + featurewise_affine(h, self.film2(t))
 
         if self.use_cm:
             h = self.norm2a(x)
             q = _maybe_rotate(h, rotary)
-            h = self.multihead_attn2(q, _maybe_rotate(memory2, rotary), memory2)
+            h = self.drop(self.multihead_attn2(q, _maybe_rotate(memory2, rotary), memory2, generator=g), g)
             x = x + featurewise_affine(h, self.film2a(t))
 
-        h = self.linear2(F.gelu(self.linear1(self.norm3(x))))  # erf GELU, as the reference
+        h = self.ff_drop(F.gelu(self.linear1(self.norm3(x))), g)  # erf GELU, as the reference
+        h = self.drop(self.linear2(h), g)
         return x + featurewise_affine(h, self.film3(t))

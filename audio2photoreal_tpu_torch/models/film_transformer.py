@@ -13,6 +13,12 @@ model/diffusion.py:82-403) for ``data_format="pose"``:
 - ``denoise_cached`` is the per-step body: time embedding, the two t-token
   rows of the memory, the decoder stack and the causal dilated conv post-net.
   ``denoise`` is the two in a row.
+- ``forward`` is the training forward (film_transformer.py:496-526): encode,
+  two independent classifier-free-guidance keep draws (audio, keyframes),
+  denoise.  In training mode dropout runs at ``cfg.dropout`` in the decoder
+  stack and at a fixed 0.2 in the post-net, drawing from the ``generator``
+  handed in.  The wav2vec frontend is frozen: no gradient reaches it and the
+  optimizer never sees it.
 
 The face branch (lip regressor, rotary cond-encoder) is not ported yet.
 Module names follow the reference's state dict, which
@@ -29,7 +35,7 @@ import torch.nn.functional as F
 
 from audio2photoreal_tpu_torch.core.config import DenoiserConfig
 from audio2photoreal_tpu_torch.models.audio_encoder import Wav2VecFeatureExtractor, feature_frames
-from audio2photoreal_tpu_torch.models.blocks import FiLMDecoderLayer
+from audio2photoreal_tpu_torch.models.blocks import Dropout, FiLMDecoderLayer
 from audio2photoreal_tpu_torch.ops.convs import conv1d, valid_conv1d
 from audio2photoreal_tpu_torch.ops.embeddings import sinusoidal_pos_emb
 from audio2photoreal_tpu_torch.ops.rotary import RotaryTable, apply_rotary, make_rotary_table
@@ -60,6 +66,8 @@ class DecoderStack(nn.Module):
 
 
 class FiLMDenoiser(nn.Module):
+    POSTNET_DROPOUT = 0.2  # fixed, whatever cfg.dropout (film_transformer.py:476-484)
+
     def __init__(self, cfg: DenoiserConfig):
         super().__init__()
         c = self.cfg = cfg
@@ -68,7 +76,7 @@ class FiLMDenoiser(nn.Module):
         if c.dtype != "float32" or c.frontend_dtype != "float32":
             raise NotImplementedError("bf16 compute: see ROADMAP")
         D, nf = c.latent_dim, c.nfeats
-        self.audio_model = Wav2VecFeatureExtractor()
+        self.audio_model = Wav2VecFeatureExtractor().requires_grad_(False)  # frozen
         self.input_projection = nn.Linear(nf, D)
         self.cond_projection = nn.Linear(c.cond_dim, D)
         self.norm_cond = nn.LayerNorm(D, eps=1e-5)
@@ -95,8 +103,10 @@ class FiLMDenoiser(nn.Module):
             nn.Conv1d(cin, cout, 3, dilation=d) for cin, cout, d in post
         )
         self.final_conv = nn.Conv1d(nf, nf, 1)
+        self.post_drop = Dropout(self.POSTNET_DROPOUT, c.hash_dropout)
         self.seqTransDecoder = DecoderStack(
-            FiLMDecoderLayer(D, c.num_heads, c.ff_size, use_cm=True, flash=c.flash_attention)
+            FiLMDecoderLayer(D, c.num_heads, c.ff_size, use_cm=True, flash=c.flash_attention,
+                             dropout=c.dropout, hash_dropout=c.hash_dropout)
             for _ in range(c.num_layers)
         )
         self.final_layer = nn.Linear(D, nf)
@@ -132,8 +142,10 @@ class FiLMDenoiser(nn.Module):
     # ------------------------------------------------------------------ #
 
     def encode_audio(self, audio: torch.Tensor) -> torch.Tensor:
-        """[B, S, 2] raw 48 kHz stereo -> [B, Ta, 1024] frozen wav2vec features."""
-        return self.audio_model(audio)
+        """[B, S, 2] raw 48 kHz stereo -> [B, Ta, 1024] frozen wav2vec features
+        (no graph: the role of the JAX package's stop_gradient)."""
+        with torch.no_grad():
+            return self.audio_model(audio)
 
     def encode_conditioning(
         self,
@@ -164,8 +176,10 @@ class FiLMDenoiser(nn.Module):
         vb = torch.cat([b[2 * D :] for b in bs])
         return kw, kb, vw, vb
 
-    def build_cond_cache(self, cond: CondTokens, keep_mask: torch.Tensor) -> dict:
-        """Everything in the denoise step that does not depend on (x, t)."""
+    def build_cond_cache(self, cond: CondTokens, keep_mask: torch.Tensor,
+                         keep_mask_pose: Optional[torch.Tensor] = None) -> dict:
+        """Everything in the denoise step that does not depend on (x, t).
+        ``keep_mask_pose`` keeps the keyframe tokens (default: ``keep_mask``)."""
         if cond.pose_tokens is None:
             raise ValueError("the pose denoiser needs keyframe tokens")
         keep_e = keep_mask[:, None, None]
@@ -180,16 +194,19 @@ class FiLMDenoiser(nn.Module):
         mem_rot = apply_rotary(mem_cond, rot) if rot is not None else mem_cond
         kw, kb, vw, vb = self._stacked_cross_kv_weights()
         n_pose = cond.pose_tokens.shape[1]
+        keep_p = keep_e if keep_mask_pose is None else keep_mask_pose[:, None, None]
         return {
             "ks": F.linear(mem_rot, kw, kb),  # [B, n_cond, L*D]
             "vs": F.linear(mem_cond, vw, vb),
             "cond_hidden": cond_hidden,
-            "pose_tokens": torch.where(keep_e, cond.pose_tokens, self.null_pose_embed[:, :n_pose]),
+            "pose_tokens": torch.where(keep_p, cond.pose_tokens, self.null_pose_embed[:, :n_pose]),
             "n_cond": n_cond,
         }
 
-    def denoise_cached(self, x: torch.Tensor, t: torch.Tensor, cache: dict) -> torch.Tensor:
-        """x [B, T, nfeats] at original-schedule timesteps t [B] -> model output."""
+    def denoise_cached(self, x: torch.Tensor, t: torch.Tensor, cache: dict,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, T, nfeats] at original-schedule timesteps t [B] -> model output.
+        ``generator`` feeds the dropout draws in training mode."""
         D = self.cfg.latent_dim
         B = x.shape[0]
         h = self.input_projection(x)
@@ -204,8 +221,8 @@ class FiLMDenoiser(nn.Module):
         vs = torch.cat([cache["vs"], F.linear(mem_t, vw, vb)], dim=1)
         for i, layer in enumerate(self.layers):
             cross_kv = (ks[..., i * D : (i + 1) * D], vs[..., i * D : (i + 1) * D])
-            h = layer(h, t_vec, cross_kv, cache["pose_tokens"], rotary=rot)
-        return self._postnet(self.final_layer(h))
+            h = layer(h, t_vec, cross_kv, cache["pose_tokens"], rotary=rot, generator=generator)
+        return self._postnet(self.final_layer(h), generator)
 
     def denoise(
         self,
@@ -213,16 +230,40 @@ class FiLMDenoiser(nn.Module):
         t: torch.Tensor,  # [B] original-schedule timesteps
         cond: CondTokens,
         keep_mask: torch.Tensor,  # [B] bool: False -> null conditioning (CFG)
+        keep_mask_pose: Optional[torch.Tensor] = None,  # [B] bool for the keyframes
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        return self.denoise_cached(x, t, self.build_cond_cache(cond, keep_mask))
+        return self.denoise_cached(x, t, self.build_cond_cache(cond, keep_mask, keep_mask_pose), generator)
 
-    def _postnet(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, T, nfeats] noisy motion
+        t: torch.Tensor,  # [B] timesteps
+        audio: torch.Tensor,  # [B, S, 2] raw 48 kHz stereo
+        keyframes: torch.Tensor,  # [B, Tk, key_dim]
+        keyframe_valid: Optional[torch.Tensor] = None,
+        cond_drop_prob: float = 0.0,
+        generator: Optional[torch.Generator] = None,  # CPU generator of this step's draws
+    ) -> torch.Tensor:
+        """The training forward: encode, classifier-free-guidance dropout of
+        the audio and, independently, of the keyframes (diffusion.py:326,
+        :367), denoise."""
+        cond = self.encode_conditioning(audio, keyframes, keyframe_valid)
+        B = x.shape[0]
+        if cond_drop_prob > 0.0:
+            u = torch.rand((2, B), generator=generator).to(x.device)
+            keep, keep_pose = u[0] >= cond_drop_prob, u[1] >= cond_drop_prob
+        else:
+            keep = keep_pose = torch.ones((B,), dtype=torch.bool, device=x.device)
+        return self.denoise(x, t, cond, keep, keep_pose, generator)
+
+    def _postnet(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Causal dilated conv stack with averaged skip connections
         (reference: diffusion.py:214-224)."""
         out = F.pad(x, (0, 0, self.cfg.postnet_receptive_field - 1, 0))
         for conv in self.post_pose_layers:
             y = conv1d(out, conv.weight.permute(2, 1, 0), conv.bias,
                        dilation=conv.dilation[0], padding=(0, 0))
-            y = F.leaky_relu(y, negative_slope=0.2)
+            y = self.post_drop(F.leaky_relu(y, negative_slope=0.2), generator)
             out = (out[:, -y.shape[1]:, :] + y) / 2.0 if out.shape[-1] == y.shape[-1] else y
         return valid_conv1d(out, self.final_conv.weight.permute(2, 1, 0), self.final_conv.bias)

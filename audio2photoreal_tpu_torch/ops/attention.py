@@ -4,7 +4,9 @@ Counterpart of ``audio2photoreal_tpu/ops/attention.py``: logits and softmax
 in f32, masks as additive -1e9 biases, causal alignment ``j <= i + (Tk - Tq)``.
 This is the path every attention takes when the layer was not built with
 ``flash`` or the flash gate is closed (``models/blocks.py``), and the plain
-version of the attention kernel (``kernels/flash_attn.py``).
+version of the attention kernel (``kernels/flash_attn.py``).  Training drops
+probabilities with a Bernoulli mask drawn from an explicit generator, as the
+JAX package draws its mask from an explicit key (``ops/attention.py:52-54``).
 """
 
 from __future__ import annotations
@@ -35,10 +37,15 @@ def dot_product_attention(
     k: torch.Tensor,  # [B, H, Tk, Dh]
     v: torch.Tensor,  # [B, H, Tk, Dh]
     bias: Optional[torch.Tensor] = None,  # broadcastable to [B, H, Tq, Tk]
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,  # on q's device; draws the mask
 ) -> torch.Tensor:
     scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_rate > 0.0:
+        keep = torch.empty_like(probs).bernoulli_(1.0 - dropout_rate, generator=generator)
+        probs = probs * keep / (1.0 - dropout_rate)
     return torch.matmul(probs, v)

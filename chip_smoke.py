@@ -40,6 +40,30 @@ exception and a nonzero exit.
    full width by ``load_body_renderer`` + ``render_full_video``: frame batch
    8, the 2 rig cameras, the mesh_density=10 assets (raster launches
    counted: 8 batches x 2 cameras).
+8. kernel vs plain, attention training: at the pose trainer's shapes (B 64,
+   H 4, Tq 600, Tk 600 and 2000, Dh 64), the face width (B 16, Dh 128) and
+   the ragged masked causal case, f32 and bf16: the forward with the
+   replayed dropout at rate 0.5 against the plain version with the explicit
+   mask (f32, so one wrong mask element shows), then at rate 0.1 forward and
+   backward through autograd against the plain versions (gradients within
+   2e-5 (f32) / 2e-2 (bf16) of the largest plain gradient), the backward run
+   twice and compared bit for bit; times of the kernels, the plain versions
+   and the backward of ``scaled_dot_product_attention`` with the same mask
+   at rate 0 (a yardstick only), and the backward's bound (10 B H Tq Tk Dh
+   flops, flash.py:266, against bytes).
+9. train parity: a full-width pose model from ``--seed``, one deterministic
+   step at batch 4 with fixed t and noise, on the card (kernels) against the
+   CPU (plain versions): loss 1e-5 relative, every gradient within 1e-4 of
+   its largest element, params after the AdamW step within 2 lr and 99.9%
+   within 1e-6.
+10. main path, training: ``apps.train_diffusion.train`` at the reference's
+   pose operating point (DenoiserConfig() widths, flash attention and hash
+   dropout, raw audio through the frozen wav2vec frontend, batch 64, AdamW lr
+   1e-4, cond_drop_prob 0.2) for 4 steps on the synthetic person (attention
+   launches counted: 8 layers x 2 attentions x 4 steps, forward and
+   backward); the checkpoint sampled by ``generate`` (one DDIM-10 clip);
+   steps/s, peak memory, and one more step under torch.profiler for the
+   device time by kernel.
 
 Then one line with every kernel's numbers, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/.
@@ -77,6 +101,19 @@ KERNEL_CASES = [
 ]
 MAIN_CASE = (4, 4, 600, 2000, 64, False)  # the kernel's numbers in the summary line
 RENDER_FRAMES, RENDER_BATCH = 64, 8
+# (B, H, Tq, Tk, Dh, masked): the pose trainer's self- and cross-attention at
+# batch 64, the face width, and a ragged kv_valid + causal case
+TRAIN_KERNEL_CASES = [
+    (64, 4, 600, 600, 64, False),
+    (64, 4, 600, 2000, 64, False),
+    (16, 4, 600, 2000, 128, False),
+    (2, 3, 77, 203, 64, True),
+]
+TRAIN_MAIN_CASE = (64, 4, 600, 2000, 64, False)  # the backward's numbers in the summary line
+GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # of the largest plain gradient
+TRAIN_DROPOUT = 0.1
+TRAIN_STEPS, TRAIN_BATCH = 4, 64
+LR = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -109,21 +146,26 @@ def phase_device() -> str:
 def phase_build() -> None:
     from audio2photoreal_tpu_torch.kernels import build, flash_attn, raster
 
-    def one(mod):
-        path = build.library_path(mod.NAME, mod.SOURCES)
+    libraries = [(flash_attn.NAME, flash_attn.SOURCES, flash_attn.library),
+                 (flash_attn.BWD_NAME, flash_attn.BWD_SOURCES, flash_attn.bwd_library),
+                 (raster.NAME, raster.SOURCES, raster.library)]
+
+    def one(lib):
+        name, sources, load = lib
+        path = build.library_path(name, sources)
         cached = path.exists()
         t0 = time.perf_counter()
-        mod.library()
-        return mod, path, cached, time.perf_counter() - t0
+        load()
+        return name, path, cached, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        results = list(pool.map(one, (flash_attn, raster)))
+    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
+        results = list(pool.map(one, libraries))
     wall = time.perf_counter() - t0
-    for mod, path, cached, seconds in results:
+    for name, path, cached, seconds in results:
         log = path.with_suffix(".log").read_text()
         ptxas = [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
-        emit("build", kernel=mod.NAME, library=os.path.relpath(path, ROOT), already_built=cached,
+        emit("build", kernel=name, library=os.path.relpath(path, ROOT), already_built=cached,
              seconds=seconds, all_builds_wall_s=wall, ptxas=ptxas)
 
 
@@ -581,6 +623,277 @@ def phase_main_path(seed: int, smi: str) -> dict:
     return {flash_attn.NAME: attn_launches, raster.NAME: raster_launches}
 
 
+def _attn_inputs(g, B, H, Tq, Tk, Dh, masked):
+    import torch
+
+    q, k, v, do = (torch.randn((B, H, T, Dh), generator=g, device="cuda") for T in (Tq, Tk, Tk, Tq))
+    kv_valid = None
+    if masked:  # the last keys of every batch row but the last are masked
+        lengths = torch.tensor([Tk - 50 * (B - 1 - b) for b in range(B)], device="cuda")
+        kv_valid = (torch.arange(Tk, device="cuda")[None] < lengths[:, None]).float()
+    return q, k, v, do, kv_valid
+
+
+def phase_train_kernels(seed: int) -> dict:
+    """The dropout forward and the backward kernels against their plain
+    versions at the trainer's shapes (phase 8 of the head note)."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio2photoreal_tpu_torch.kernels.flash_attn import (
+        dropout_mask,
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+    from audio2photoreal_tpu_torch.ops.attention import causal_bias, padding_bias
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    summary = {}
+    for B, H, Tq, Tk, Dh, masked in TRAIN_KERNEL_CASES:
+        q, k, v, do, kv_valid = _attn_inputs(g, B, H, Tq, Tk, Dh, masked)
+        dseed = 1_000_003 + Tq + Tk
+        # the mask, exactly: at rate 0.5 in f32 one wrong element moves an
+        # output by ~p*v, above the f32 bar
+        got = flash_attention(q, k, v, kv_valid, masked, 0.5, dseed)
+        want = flash_attention_reference(q, k, v, kv_valid, masked, 0.5, dseed)
+        torch.cuda.synchronize()
+        mask_err = (got - want).abs().max().item()
+        del got, want
+        if not mask_err <= TOL["float32"]:
+            raise AssertionError(f"the dropout forward disagrees with the explicit mask: {mask_err}")
+        # the mask alone: its plain version builds the [B, H, Tq, Tk] multiplier,
+        # whose least cost is writing it once; in the kernels it is never stored
+        it = dict(iters=5, warmup=1) if B * Tk >= 64 * 2000 else {}
+        mask_plain_ms = _time_ms(lambda: dropout_mask(B, H, Tq, Tk, TRAIN_DROPOUT, dseed, None, "cuda"), **it)
+        mask_bound_ms = _bound(4.0 * B * H * Tq * Tk, 0.0)[0]
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).replace("torch.", "")
+            qd, kd, vd, dod = (x.to(dtype) for x in (q, k, v, do))
+            args = (kv_valid, masked, TRAIN_DROPOUT, dseed)
+            qg, kg, vg = (x.clone().requires_grad_() for x in (qd, kd, vd))
+            out = flash_attention(qg, kg, vg, *args)
+            grads = torch.autograd.grad(out, (qg, kg, vg), dod, retain_graph=True)
+            again = torch.autograd.grad(out, (qg, kg, vg), dod, retain_graph=True)
+            want_out = flash_attention_reference(qd, kd, vd, *args)
+            want = flash_attention_bwd_reference(qd, kd, vd, dod, *args)
+            torch.cuda.synchronize()
+            fwd_err = (out.detach().float() - want_out.float()).abs().max().item()
+            scale = max(w.float().abs().max().item() for w in want)
+            err = max((a.float() - w.float()).abs().max().item() for a, w in zip(grads, want))
+            identical = all(torch.equal(a, b) for a, b in zip(grads, again))
+            del want_out, want, again, grads
+            # the library's backward with the same mask at rate 0, as a yardstick
+            mask = None
+            if masked:
+                mask = (padding_bias(kv_valid) + causal_bias(Tq, Tk, device="cuda")).to(dtype)
+            ql, kl, vl = (x.clone().requires_grad_() for x in (qd, kd, vd))
+            lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+            bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), dod, retain_graph=True)  # noqa: E731
+            plain = lambda: flash_attention_bwd_reference(qd, kd, vd, dod, *args)  # noqa: E731
+            fwd = lambda: flash_attention(qd, kd, vd, *args)  # noqa: E731
+            fwd_nodrop = lambda: flash_attention(qd, kd, vd, kv_valid, masked)  # noqa: E731
+            fwd_plain = lambda: flash_attention_reference(qd, kd, vd, *args)  # noqa: E731
+            lib = lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dod, retain_graph=True)  # noqa: E731
+            # in turns: plain, kernel, kernel, plain
+            p1, k1, k2, p2 = _time_ms(plain, **it), _time_ms(bwd), _time_ms(bwd), _time_ms(plain, **it)
+            fp1, fk1, fk2, fp2 = _time_ms(fwd_plain, **it), _time_ms(fwd), _time_ms(fwd), _time_ms(fwd_plain, **it)
+            fn1, fn2 = _time_ms(fwd_nodrop), _time_ms(fwd_nodrop)
+            l1 = _time_ms(lib)
+            del out, lib_out
+            item = qd.element_size()
+            # each input read once (q, k, v, dO, O, lse, kv_valid), each gradient written once
+            nbytes = (item * (3 * B * H * Tq * Dh + 2 * B * H * Tk * Dh) + 4 * B * H * Tq
+                      + item * (B * H * Tq * Dh + 2 * B * H * Tk * Dh) + (4 * B * Tk if masked else 0))
+            bound_ms, bound_by = _bound(nbytes, 10.0 * B * H * Tq * Tk * Dh, name)
+            row = dict(B=B, H=H, Tq=Tq, Tk=Tk, Dh=Dh, kv_valid_causal=masked, dtype=name, dropout=TRAIN_DROPOUT,
+                       mask_rate05_max_abs_err=mask_err, fwd_max_abs_err=fwd_err, max_abs_err=err,
+                       grad_scale=scale, tol=GRAD_TOL[name] * scale, bitwise_deterministic=identical,
+                       ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=l1,
+                       fwd_dropout_ms=(fk1 + fk2) / 2, fwd_dropout_plain_ms=(fp1 + fp2) / 2,
+                       fwd_no_dropout_ms=(fn1 + fn2) / 2, mask_in_kernel_ms=(fk1 + fk2 - fn1 - fn2) / 2,
+                       mask_plain_ms=mask_plain_ms, mask_bound_ms=mask_bound_ms,
+                       bound_ms=bound_ms, bound_by=bound_by)
+            emit("kernel_vs_plain", kernel="flash_attn_bwd", **row)
+            if not (err <= GRAD_TOL[name] * scale and fwd_err <= TOL[name] and identical):
+                raise AssertionError(f"flash_attn_bwd disagrees with its plain version: {row}")
+            if (B, H, Tq, Tk, Dh, masked) == TRAIN_MAIN_CASE and name == "float32":
+                summary = row
+            del qg, kg, vg, ql, kl, vl
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return summary
+
+
+def _train_batch(rng, B, T):
+    import numpy as np
+
+    mask = np.ones((B, T), np.float32)
+    mask[-1, T - 150:] = 0.0
+    kv = np.ones((B, -(-T // 30)), np.float32)
+    kv[-1, -5:] = 0.0
+    return {"motion": rng.randn(B, T, 104).astype(np.float32) * mask[..., None], "mask": mask,
+            "audio": (rng.randn(B, T * 1600, 2) * 0.5).astype(np.float32),
+            "keyframes": rng.randn(B, kv.shape[1], 104).astype(np.float32), "keyframe_valid": kv}
+
+
+def phase_train_parity(seed: int) -> None:
+    """One deterministic full-width train step, card against CPU (phase 9)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.core.config import DiffusionConfig, TrainConfig
+    from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
+    from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts
+    from audio2photoreal_tpu_torch.train.loops import diffusion_train_step
+    from audio2photoreal_tpu_torch.train.state import TrainState
+
+    cfg, model_cpu = _pose_model(seed, hash_dropout=True)
+    model_gpu = copy.deepcopy(model_cpu).cuda()
+    rng = np.random.RandomState(seed + 2)
+    B, T = 4, cfg.max_seq_length
+    batch = _train_batch(rng, B, T)
+    t = np.array([0, 250, 600, 999])
+    noise = rng.randn(B, T, cfg.nfeats).astype(np.float32)
+    dcfg = DiffusionConfig(cond_drop_prob=0.0)
+    out, secs = {}, {}
+    for device, model in (("cuda", model_gpu), ("cpu", model_cpu)):
+        state = TrainState(model.eval(), TrainConfig(lr=LR))
+        before = (launch_counts[flash_attn.NAME], launch_counts[flash_attn.BWD_NAME])
+        t0 = time.perf_counter()
+        metrics, _ = diffusion_train_step(
+            state, make_schedule().to_device(device), dcfg, {k: torch.from_numpy(v).to(device) for k, v in
+                                                             batch.items()},
+            t=torch.from_numpy(t), noise=torch.from_numpy(noise).to(device))
+        secs[device] = time.perf_counter() - t0
+        launches = (launch_counts[flash_attn.NAME] - before[0], launch_counts[flash_attn.BWD_NAME] - before[1])
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        out[device] = (metrics, grads, params, launches)
+    (mg, gg, pg, lg), (mc, gc, pc, lc) = out["cuda"], out["cpu"]
+    loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+    grad_rel = max((gg[n] - gc[n]).abs().max().item() / max(gc[n].abs().max().item(), 1e-30) for n in gc)
+    d = torch.cat([(pg[n] - pc[n]).abs().flatten() for n in pc])
+    row = dict(batch=B, latent=cfg.latent_dim, layers=cfg.num_layers, t=t.tolist(), loss_gpu=mg["loss"],
+               loss_cpu=mc["loss"], loss_rel_err=loss_rel, grad_max_rel_err=grad_rel,
+               grads_compared=len(gc), same_grad_names=sorted(gg) == sorted(gc),
+               param_max_abs_diff=d.max().item(), param_share_within_1e6=(d <= 1e-6).float().mean().item(),
+               kernel_launches_fwd_bwd=list(lg), cpu_launches=list(lc), gpu_s=secs["cuda"], cpu_s=secs["cpu"])
+    emit("train_parity", **row)
+    if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and row["same_grad_names"] and d.max().item() <= 2 * LR
+            and row["param_share_within_1e6"] >= 0.999 and lg == (2 * cfg.num_layers,) * 2 and lc == (0, 0)):
+        raise AssertionError(f"card and CPU disagree on the train step: {row}")
+
+
+def _profile_step(state, sched, dcfg, batch) -> dict:
+    """One more train step under torch.profiler: device time by kernel (the
+    device-side events only; a host op's own row repeats its kernels' time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio2photoreal_tpu_torch.train.loops import diffusion_train_step
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        diffusion_train_step(state, sched, dcfg, batch, torch.Generator().manual_seed(7),
+                             torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    total = sum(per.values())
+    if total == 0.0:
+        raise AssertionError("torch.profiler recorded no device time")
+    group = lambda pat: sum(v for k, v in per.items() if pat in k)  # noqa: E731
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:15]
+    return dict(profiled_wall_ms=wall_ms, device_ms=total, device_idle_share=1.0 - total / wall_ms,
+                device_launches=sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                attn_bwd_ms=group("attn_bwd_"), attn_bwd_share=group("attn_bwd_") / total,
+                attn_fwd_ms=group("attn_fwd_kernel"), attn_fwd_share=group("attn_fwd_kernel") / total,
+                int64_elementwise_ms=group("<long"),  # the hash dropout masks' uint32-in-int64 math
+                cudnn_conv_fprop_ms=group("fprop_implicit_gemm"), top_kernels_ms=[[k[:90], v] for k, v in top])
+
+
+def phase_main_path_train(seed: int, smi: str):
+    """``train()`` at the reference's pose operating point (phase 10); the
+    backward kernel's launches on it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.apps.generate import generate
+    from audio2photoreal_tpu_torch.apps.train_diffusion import train
+    from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, TrainConfig
+    from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
+    from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts
+    from audio2photoreal_tpu_torch.train import checkpoints
+
+    person = "SYNTH01"
+    root = os.path.join(WORK, "train_data")
+    save_dir = os.path.join(WORK, "train_run")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(save_dir, ignore_errors=True)
+    make_synthetic_person(root, person, num_scenes=8, frames_per_scene=600, seed=seed)
+    mcfg = DenoiserConfig(data_format="pose", flash_attention=True, hash_dropout=True)
+    dcfg = DiffusionConfig()
+    datacfg = DataConfig(person=person, batch_size=TRAIN_BATCH, max_seq_length=mcfg.max_seq_length)
+    tcfg = TrainConfig(lr=LR, num_steps=TRAIN_STEPS, log_interval=1, save_interval=10**9, seed=seed)
+    timings: dict = {}
+
+    launch_counts.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train(root, save_dir, mcfg, dcfg, datacfg, tcfg, device="cuda", timings=timings)
+    train_s = time.perf_counter() - t0
+    fwd, bwd = launch_counts[flash_attn.NAME], launch_counts[flash_attn.BWD_NAME]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps_done = state.step
+
+    logged = [json.loads(l) for l in open(os.path.join(save_dir, "log.jsonl"))]
+    steady = timings["step_s"][1:]
+    per_step = 2 * mcfg.num_layers
+    # the saved model samples: one DDIM-10 clip through generate
+    res = np.load(generate(save_dir, root, num_samples=1, timestep_respacing="ddim10", device="cuda",
+                           output_dir=os.path.join(WORK, "train_samples")), allow_pickle=True).item()
+    # one more step under the profiler, on a batch of the same shapes
+    from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
+    from audio2photoreal_tpu_torch.apps.generate import find_stats
+    from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
+
+    ds = SocialDataset(load_local_data(root, person), find_stats(os.path.join(root, person)), datacfg, "train")
+    batch = {k: torch.from_numpy(np.asarray(v)).to("cuda") for k, v in
+             ds.sample_batch(np.random.RandomState(seed), TRAIN_BATCH).items()}
+    prof = _profile_step(state, make_schedule().to_device("cuda"), dcfg, batch)
+
+    checks = {
+        "losses_finite": len(logged) == TRAIN_STEPS and all(np.isfinite(r["loss"]) for r in logged),
+        "no_skipped_step": steps_done == TRAIN_STEPS and all(r["skipped_nonfinite"] == 0 for r in logged),
+        "checkpoint_written": checkpoints.latest_step(os.path.join(save_dir, "ckpt")) == TRAIN_STEPS
+        and os.path.exists(os.path.join(save_dir, checkpoints.MODEL_FILE)),
+        "attention_fwd_launches": fwd == per_step * TRAIN_STEPS,
+        "attention_bwd_launches": bwd == per_step * TRAIN_STEPS,
+        "generate_from_checkpoint": list(res["motions"].shape) == [1, mcfg.nfeats, 1, mcfg.max_seq_length]
+        and bool(np.isfinite(res["motions"]).all()),
+    }
+    emit("main_path_train", nvidia_smi=smi, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+         config=dataclasses.asdict(mcfg), train_s=train_s, step_s=timings["step_s"], batch_s=timings["batch_s"],
+         steady_step_ms=1e3 * sum(steady) / len(steady), steady_steps_per_s=len(steady) / sum(steady),
+         steady_batch_share=sum(timings["batch_s"][1:]) / sum(steady), peak_memory_gb=peak_gb,
+         device_idle_share_of_steady_step=1.0 - prof["device_ms"] / (1e3 * sum(steady) / len(steady)),
+         losses=[r["loss"] for r in logged], grad_norms=[r["grad_norm"] for r in logged],
+         kernel_launches_fwd=fwd, kernel_launches_bwd=bwd, **prof, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"main path (train) checks failed: {checks}")
+    return fwd, bwd
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -596,6 +909,9 @@ def main() -> None:
     phase_slice_parity(args.seed)
     phase_render_parity(args.seed)
     launches = phase_main_path(args.seed, smi)
+    bwd = phase_train_kernels(args.seed)
+    phase_train_parity(args.seed)
+    train_fwd, train_bwd = phase_main_path_train(args.seed, smi)
 
     import torch
 
@@ -604,8 +920,15 @@ def main() -> None:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": flash_attn.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_fwd.cu",
-         "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:124", "launches": launches[flash_attn.NAME],
+         "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:124",
+         "launches": launches[flash_attn.NAME] + train_fwd,
+         "launches_by_path": {"generate": launches[flash_attn.NAME], "train": train_fwd},
+         "dropout": "replayed hash mask in the kernel (training); these numbers are at rate 0",
          **{k: attn[k] for k in keys}},
+        {"name": flash_attn.BWD_NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_bwd.cu",
+         "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:157", "launches": train_bwd,
+         "launches_by_path": {"train": train_bwd}, "dropout": bwd["dropout"], "shape": [
+             bwd[k] for k in ("B", "H", "Tq", "Tk", "Dh")], **{k: bwd[k] for k in keys}},
         {"name": raster.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/raster.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas_raster.py:143", "launches": launches[raster.NAME],
          **{k: ras[k] for k in keys}},

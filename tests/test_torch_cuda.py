@@ -6,8 +6,10 @@ so it also runs where JAX is not installed, without the JAX-side conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances with TF32 off: attention f32 1e-5 for unit-normal inputs, bf16
-2e-2; the rasterizer's face ids and coverage exactly, depth / UV /
-barycentrics 1e-5; rendered uint8 frames within one count.
+2e-2; attention gradients f32 2e-5 and bf16 2e-2 of the largest plain
+element; the dropout mask exactly; the rasterizer's face ids and coverage
+exactly, depth / UV / barycentrics 1e-5; rendered uint8 frames within one
+count.
 """
 
 import pytest
@@ -15,7 +17,11 @@ import torch
 
 from audio2photoreal_tpu_torch.core.config import DenoiserConfig
 from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts, raster
-from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention, flash_attention_reference
+from audio2photoreal_tpu_torch.kernels.flash_attn import (
+    flash_attention,
+    flash_attention_bwd_reference,
+    flash_attention_reference,
+)
 from audio2photoreal_tpu_torch.models.film_transformer import CondTokens, FiLMDenoiser
 from audio2photoreal_tpu_torch.render.geometry import project_points
 
@@ -85,6 +91,96 @@ def test_denoiser_kernel_path_matches_plain_path(cuda):
         want = model.denoise(x, t, cond, keep)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4
+
+
+# ------------------------------------- attention backward and dropout -- #
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # outputs, as the forward's test
+# gradients, kernel vs plain, relative to the largest |plain| gradient: f32
+# 2e-5 (both accumulate in f32, in another order), bf16 2e-2 (bf16 inputs and
+# outputs; the plain version rounds P o M to bf16 before its products)
+GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_case(cuda, B, H, Tq, Tk, Dh, masked, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed + Tq + Tk)
+    q, k, v, do = (torch.randn((B, H, T, Dh), generator=g, device=cuda).to(dtype) for T in (Tq, Tk, Tk, Tq))
+    kv_valid = None
+    if masked:  # causal row 0 sees keys 0..Tk-Tq, all valid in every batch row
+        lengths = torch.tensor([Tk - 20 * (B - 1 - b) for b in range(B)], device=cuda)
+        kv_valid = (torch.arange(Tk, device=cuda)[None] < lengths[:, None]).float()
+    return q, k, v, do, kv_valid
+
+
+def _kernel_grads(q, k, v, do, kv_valid, causal, rate, seed, block_q=None):
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = flash_attention(qg, kg, vg, kv_valid, causal, rate, seed, block_q)
+    out.backward(do)
+    return out.detach(), qg.grad, kg.grad, vg.grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Tq,Tk,Dh,masked,rate,block_q", [
+    (2, 4, 600, 2000, 64, False, 0.1, None), (2, 4, 600, 600, 64, False, 0.1, None),
+    (2, 2, 600, 2000, 128, False, 0.3, None), (2, 3, 77, 203, 64, True, 0.3, 16),
+    (2, 3, 77, 203, 128, True, 0.0, None), (1, 1, 1, 1, 64, False, 0.5, None),
+])
+def test_backward_kernel_matches_plain(cuda, dtype, B, H, Tq, Tk, Dh, masked, rate, block_q):
+    q, k, v, do, kv_valid = _attn_case(cuda, B, H, Tq, Tk, Dh, masked, dtype)
+    before = (launch_counts[flash_attn.NAME], launch_counts[flash_attn.BWD_NAME])
+    out, *grads = _kernel_grads(q, k, v, do, kv_valid, masked, rate, 1234, block_q)
+    assert (launch_counts[flash_attn.NAME], launch_counts[flash_attn.BWD_NAME]) == (before[0] + 1, before[1] + 1)
+    want_out = flash_attention_reference(q, k, v, kv_valid, masked, rate, 1234, block_q)
+    want = flash_attention_bwd_reference(q, k, v, do, kv_valid, masked, rate, 1234, block_q)
+    assert (out.float() - want_out.float()).abs().max().item() <= TOL[dtype]
+    # the scale of this call's gradients (dq is exactly 0 where a row sees one key)
+    scale = max(b.float().abs().max().item() for b in want)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * scale, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Tq,Tk,block_q", [(600, 2000, None), (600, 600, None), (77, 203, 16)])
+def test_dropout_mask_is_exact(cuda, Tq, Tk, block_q):
+    """With v one-hot on a window of 64 keys, the kernel's output is P o M
+    on that window element by element, so its zeros are the mask's zeros."""
+    B, H, Dh, rate, seed = 2, 2, 64, 0.5, 2**31 - 7
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k = (torch.randn((B, H, T, Dh), generator=g, device=cuda) for T in (Tq, Tk))
+    mask = flash_attn.dropout_mask(B, H, Tq, Tk, rate, seed, block_q, cuda)
+    for k0 in sorted({0, max(0, Tk // 2 - 32), max(0, Tk - Dh)}):
+        n = min(Dh, Tk - k0)
+        v = torch.zeros(B, H, Tk, Dh, device=cuda)
+        v[:, :, k0:k0 + n, :n] = torch.eye(n, device=cuda)
+        got = flash_attention(q, k, v, None, False, rate, seed, block_q)[..., :n]
+        assert torch.equal(got == 0, mask[..., k0:k0 + n] == 0)
+        want = flash_attention_reference(q, k, v, None, False, rate, seed, block_q)[..., :n]
+        assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_is_deterministic(cuda, dtype):
+    q, k, v, do, kv_valid = _attn_case(cuda, 4, 4, 600, 2000, 64, False, dtype)
+    first = _kernel_grads(q, k, v, do, kv_valid, False, 0.1, 99)
+    second = _kernel_grads(q, k, v, do, kv_valid, False, 0.1, 99)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.randn(1, 2, 8, 64, device=cuda)
+    lse = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="need the forward.s out"):
+        flash_attn.flash_attention_bwd(q, q, q, None, None, q)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attn.flash_attention_bwd(q, q, q, q, lse.double(), q)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        flash_attn.flash_attention_bwd(q, q, q, q, lse, q, dropout_rate=1.0)
 
 
 # ------------------------------------------------------------- raster -- #
