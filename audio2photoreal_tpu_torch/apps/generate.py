@@ -1,18 +1,20 @@
-"""Batch inference CLI: the pose generate path.
+"""Batch inference CLI: the pose and face generate paths.
 
 Counterpart of ``audio2photoreal_tpu/apps/generate.py:generate`` (reference:
 sample/generate.py): re-hydrate the configs from the checkpoint's
 ``config.json``, take the test-split chunks, encode the conditioning once,
 run DDIM with cached classifier-free guidance, inverse-normalise, and save
-``results.npy`` in the reference layout {motions, gt, audio, lengths,
-keyframes}, motions as [B, C, 1, T] (sample/generate.py:146-152).
+``results.npy`` in the reference layout {motions, gt, audio, lengths} plus,
+for a pose model, {keyframes}, motions as [B, C, 1, T]
+(sample/generate.py:146-152).
 
 A checkpoint directory holds ``config.json`` (the JAX package's sidecar
 format) and ``model.pt``, a ``state_dict`` under the reference's names.
 
-Keyframes are the dataset's 1 fps ground-truth poses: guide-LM keyframing
-(``--resume_trans/--resume_vq``) and the face branch are not ported yet and
-raise.  ``--plot`` renders each sample with the photoreal renderer
+A pose model takes the dataset's 1 fps ground-truth keyframes (guide-LM
+keyframing, ``--resume_trans/--resume_vq``, is not ported yet and raises); a
+face model takes none and its codes are inverse-normalised with the code
+statistics.  ``--plot`` renders each pose sample with the photoreal renderer
 (``--renderer_path``, a bundle of ``render/assets.py``) and the face codes of
 a face model's ``results.npy`` (``--face_codes``) made from the same audio.
 
@@ -97,8 +99,10 @@ def generate(
     timings: Optional[Dict[str, float]] = None,
 ) -> str:
     """Write ``results.npy`` and return its path.  ``timings``, when given,
-    receives the wall seconds of the conditioning encode and of the DDIM
-    loop, summed over repetitions (the device is synchronised at each)."""
+    receives the wall seconds of the conditioning encode (``encode_s``), the
+    lip regressor's share of it (``lip_s``, 0 for a pose model) and of the
+    DDIM loop (``ddim_s``), summed over repetitions (the device is
+    synchronised at each)."""
     if guide_path or vq_path:
         raise NotImplementedError("guide-LM keyframing (--resume_trans/--resume_vq) is not ported yet: see ROADMAP")
     if plot and not (renderer_path and face_codes):
@@ -115,20 +119,30 @@ def generate(
     ds = SocialDataset(scenes, stats, datacfg, "test")
     sched = maybe_respaced(dcfg.schedule, dcfg.steps, timestep_respacing)
 
+    pose = model.cfg.data_format == "pose"
+    inv = stats.inv_pose if pose else stats.inv_code
     n = min(num_samples, len(ds))
     batch = {k: np.stack([ds.get_chunk(i)[k] for i in range(n)]) for k in ds.get_chunk(0)}
     audio = torch.from_numpy(batch["audio"]).to(dev)
-    kf = torch.from_numpy(batch["keyframes"]).to(dev)
-    kv = torch.from_numpy(batch["keyframe_valid"]).to(dev)
+    kf = kv = None
+    if pose:
+        kf = torch.from_numpy(batch["keyframes"]).to(dev)
+        kv = torch.from_numpy(batch["keyframe_valid"]).to(dev)
     B, T, C = batch["motion"].shape
     generator = torch.Generator(device=dev).manual_seed(seed)
     if timings is not None:
-        timings.update(encode_s=0.0, ddim_s=0.0)
+        timings.update(encode_s=0.0, lip_s=0.0, ddim_s=0.0)
 
     all_motions, all_keyframes = [], []
     for _ in range(num_repetitions):
         t0 = time.perf_counter()
-        cond = model.encode_conditioning(audio, kf, kv)
+        lip = None
+        if not pose:
+            lip = model.lip_vertices(audio)
+            if timings is not None:
+                _sync(dev)
+                timings["lip_s"] += time.perf_counter() - t0
+        cond = model.encode_conditioning(audio, kf, kv, lip_verts=lip)
         if timings is not None:
             _sync(dev)
             timings["encode_s"] += time.perf_counter() - t0
@@ -139,19 +153,21 @@ def generate(
         sample = res.pred_xstart.cpu().numpy()  # the reference returns the final pred_xstart
         if timings is not None:
             timings["ddim_s"] += time.perf_counter() - t0
-        all_motions.append(stats.inv_pose(sample))
-        all_keyframes.append(stats.inv_pose(batch["keyframes"]))
+        all_motions.append(inv(sample))
+        if pose:
+            all_keyframes.append(stats.inv_pose(batch["keyframes"]))
 
     out_dir = output_dir or os.path.join(model_path, f"samples_{timestep_respacing}_seed{seed}")
     os.makedirs(out_dir, exist_ok=True)
     results = {
         # reference layout: [B, C, 1, T] (sample/generate.py:146-152)
         "motions": np.concatenate(all_motions, 0).transpose(0, 2, 1)[:, :, None, :],
-        "gt": stats.inv_pose(batch["motion"]).transpose(0, 2, 1)[:, :, None, :],
+        "gt": inv(batch["motion"]).transpose(0, 2, 1)[:, :, None, :],
         "audio": stats.inv_audio(batch["audio"]),
         "lengths": batch["lengths"],
-        "keyframes": np.concatenate(all_keyframes, 0),
     }
+    if pose:
+        results["keyframes"] = np.concatenate(all_keyframes, 0)
     out_path = os.path.join(out_dir, "results.npy")
     np.save(out_path, results)
     if plot:

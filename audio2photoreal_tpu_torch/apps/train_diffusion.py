@@ -11,7 +11,7 @@ wav2vec frontend runs in every step.  Each step's draws (batch windows, t,
 noise, guidance and dropout masks) come from generators seeded by
 (``--seed``, step index), so a resumed run takes the same steps as an
 uninterrupted one.  Runs on the card unless ``device`` says otherwise;
-without a card and without ``device`` it raises.  The face model, the
+without a card and without ``device`` it raises.  The face trainer, the
 precomputed feature cache, bf16 compute, gradient checkpointing and the
 TensorBoard / ClearML reporters raise.
 """
@@ -64,7 +64,7 @@ def train(
     each is complete) and, under ``batch_s``, the part of it spent building
     the batch on the host and copying it to the device."""
     if mcfg.data_format != "pose":
-        raise NotImplementedError("the face trainer comes with the face slice: see ROADMAP")
+        raise NotImplementedError("the face trainer is not ported yet: see ROADMAP")
     if cache_audio_features:
         raise NotImplementedError("the precomputed feature cache is not ported yet: see ROADMAP")
     if mcfg.remat:

@@ -1,7 +1,8 @@
 """JAX param tree -> this package's state_dict.
 
 The inverse of ``audio2photoreal_tpu/train/convert.py:convert_film_denoiser``
-(with ``convert_wav2vec_extractor`` for the bundled frontend) and of
+(with ``convert_wav2vec_extractor`` for the bundled frontend and, for a face
+model, ``convert_lip_regressor`` and ``encoder_layer_rotary``) and of
 ``convert_body_avatar`` (the ca_body render avatar): the port's
 modules keep the torch reference's state-dict names, so the same mapping
 read backwards carries weights trained by the JAX package into the port.
@@ -78,12 +79,66 @@ def wav2vec_extractor_state_dict_from_jax(p: Mapping[str, Any], prefix: str) -> 
     return sd
 
 
+def wav2vec_aggregator_state_dict_from_jax(p: Mapping[str, Any], prefix: str) -> StateDict:
+    """ConvAggregator params -> fairseq ``conv_layers.{i}.{1,3}`` names (the
+    conv after the pad, the norm after the dropout)."""
+    sd: StateDict = {}
+    i = 0
+    while f"conv{i}_kernel" in p:
+        _conv(sd, f"{prefix}.conv_layers.{i}.1", p[f"conv{i}_kernel"], p[f"conv{i}_bias"])
+        _norm(sd, f"{prefix}.conv_layers.{i}.3", p[f"norm{i}"])
+        i += 1
+    return sd
+
+
+def rotary_encoder_layer_state_dict(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    """RotaryEncoderLayer params -> ``self_attn``, ``norm{1,2}``,
+    ``linear{1,2}`` (what ``encoder_layer_rotary`` reads)."""
+    _mha(sd, f"{prefix}.self_attn", p["self_attn"])
+    _norm(sd, f"{prefix}.norm1", p["norm1"])
+    _norm(sd, f"{prefix}.norm2", p["norm2"])
+    _linear(sd, f"{prefix}.linear1", p["ff"]["linear1"])
+    _linear(sd, f"{prefix}.linear2", p["ff"]["linear2"])
+
+
+def _plain_layer(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    """The lip regressor's _EncLayer / _DecLayer -> the reference's
+    TransformerEncoderLayer / TransformerDecoderLayer names."""
+    for n in ("norm1", "norm2", "norm3"):
+        if n in p:
+            _norm(sd, f"{prefix}.{n}", p[n])
+    for n in ("self_attn", "cross_attn"):
+        if n in p:
+            _mha(sd, f"{prefix}.{n}.{n}", p[n])
+    _linear(sd, f"{prefix}.feedforward.ff.0", p["ff"]["linear1"])
+    _linear(sd, f"{prefix}.feedforward.ff.3", p["ff"]["linear2"])
+
+
+def lip_regressor_state_dict_from_jax(p: Mapping[str, Any], prefix: str = "") -> StateDict:
+    """LipRegressor params -> the names ``convert_lip_regressor`` reads."""
+    sd: StateDict = {}
+    enc = p["audio_encoder"]
+    w2v = f"{prefix}audio_encoder.wav2vec_model"
+    sd.update(wav2vec_extractor_state_dict_from_jax(enc["feature_extractor"], f"{w2v}.feature_extractor"))
+    sd.update(wav2vec_aggregator_state_dict_from_jax(enc["feature_aggregator"], f"{w2v}.feature_aggregator"))
+    i = 0
+    while f"enc_{i}" in p:
+        _plain_layer(sd, f"{prefix}regression_model.transformer_encoder.{i}", p[f"enc_{i}"])
+        i += 1
+    i = 0
+    while f"dec_{i}" in p:
+        _plain_layer(sd, f"{prefix}regression_model.transformer_decoder.{i}", p[f"dec_{i}"])
+        i += 1
+    _linear(sd, f"{prefix}project_output", p["project_output"])
+    return sd
+
+
 def film_denoiser_state_dict_from_jax(
     params: Mapping[str, Any], data_format: str, num_layers: int
 ) -> StateDict:
     """FiLMDenoiser params (``{"params": ...}`` or the inner tree) -> state_dict."""
-    if data_format != "pose":
-        raise NotImplementedError("face branch: see ROADMAP")
+    if data_format not in ("pose", "face"):
+        raise ValueError(f"data_format must be pose or face; got {data_format!r}")
     p = params["params"] if "params" in params else params
     sd: StateDict = {}
     _linear(sd, "input_projection", p["input_projection"])
@@ -95,16 +150,24 @@ def film_denoiser_state_dict_from_jax(
     _norm(sd, "non_attn_cond_projection.0", p["non_attn_norm"])
     _linear(sd, "non_attn_cond_projection.1", p["non_attn_d1"])
     _linear(sd, "non_attn_cond_projection.3", p["non_attn_d2"])
-    for n in ("null_cond_embed", "null_cond_hidden", "null_pose_embed"):
+    for n in ("null_cond_embed", "null_cond_hidden"):
         sd[n] = _a(p[n])
     for i in range(num_layers):
         _decoder_layer(sd, f"seqTransDecoder.stack.{i}", p[f"decoder_{i}"])
     _linear(sd, "final_layer", p["final_layer"])
-    _linear(sd, "frame_cond_projection", p["frame_cond_projection"])
-    _norm(sd, "frame_norm_cond", p["frame_norm_cond"])
-    for i in range(6):
-        _conv(sd, f"post_pose_layers.{i}", p[f"post_conv{i}_kernel"], p[f"post_conv{i}_bias"])
-    _conv(sd, "final_conv", p["final_conv_kernel"], p["final_conv_bias"])
+    if data_format == "pose":
+        sd["null_pose_embed"] = _a(p["null_pose_embed"])
+        _linear(sd, "frame_cond_projection", p["frame_cond_projection"])
+        _norm(sd, "frame_norm_cond", p["frame_norm_cond"])
+        for i in range(6):
+            _conv(sd, f"post_pose_layers.{i}", p[f"post_conv{i}_kernel"], p[f"post_conv{i}_bias"])
+        _conv(sd, "final_conv", p["final_conv_kernel"], p["final_conv_bias"])
+    else:
+        i = 0
+        while f"cond_encoder_{i}" in p:
+            rotary_encoder_layer_state_dict(sd, f"cond_encoder.{i}", p[f"cond_encoder_{i}"])
+            i += 1
+        sd.update(lip_regressor_state_dict_from_jax(p["lip_model"], "lip_model."))
     if "audio_frontend" in p:
         sd.update(wav2vec_extractor_state_dict_from_jax(
             p["audio_frontend"]["feature_extractor"], "audio_model.feature_extractor"

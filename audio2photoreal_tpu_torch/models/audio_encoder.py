@@ -1,16 +1,25 @@
-"""The frozen vq-wav2vec conv frontend of the denoisers.
+"""The frozen wav2vec conv frontends.
 
-Counterpart of ``audio2photoreal_tpu/models/audio_encoder.py``
-(``feature_frames``, ``ConvFeatureExtractor``, ``Wav2VecFeatureExtractor``):
-per channel, 48 kHz -> 16 kHz resample, then five valid convs without bias
-(strides 5*4*2*2*2 = 160), each followed by a group norm over (C, T) jointly
-and a ReLU, then ``log(|x| + 1)``; 20 s of audio gives 1998 frames, and the
-two channels concatenate to [B, Ta, 1024].
+Counterpart of ``audio2photoreal_tpu/models/audio_encoder.py``:
 
-The modules keep fairseq's state-dict names (``conv_layers.{i}.0.weight``
-for the conv, ``conv_layers.{i}.2.{weight,bias}`` for its Fp32GroupNorm), so
-a reference checkpoint loads as it is.  The convs run in torch's [B, C, T]
-layout inside the module; the public functions take and return [B, T, C].
+- ``Wav2VecFeatureExtractor``, the denoisers' vq-wav2vec frontend: per
+  channel, 48 kHz -> 16 kHz resample, then five valid convs without bias
+  (strides 5*4*2*2*2 = 160), each followed by a group norm over (C, T)
+  jointly and a ReLU, then ``log(|x| + 1)``; 20 s of audio gives 1998
+  frames, and the two channels concatenate to [B, Ta, 1024].
+- ``Wav2VecEncoder``, the lip regressor's wav2vec_large (reference:
+  audio_encoder.py:24-46): the same extractor on mono audio left-padded by
+  320 zeros at 16 kHz, then ``ConvAggregator``, fairseq's 12-layer residual
+  conv stack (kernels 2..13, replication left-pad, group norm, ReLU,
+  residual x sqrt(0.5)), at wav2vec's ~100 Hz.
+
+The JAX package's ``Wav2VecDownsampler`` has no caller and ``AudioTcn`` is
+dead code in the reference; neither is ported.  The modules keep fairseq's
+state-dict names (extractor: ``conv_layers.{i}.0.weight`` for the conv,
+``conv_layers.{i}.2.{weight,bias}`` for its Fp32GroupNorm; aggregator: the
+conv at ``conv_layers.{i}.1``, the norm at ``conv_layers.{i}.3``), so a
+reference checkpoint loads as it is.  The convs run in torch's [B, C, T]
+layout inside the modules; the public functions take and return [B, T, C].
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from audio2photoreal_tpu_torch.core.config import WAV2VEC_SR
 from audio2photoreal_tpu_torch.ops.resample import resample
@@ -93,3 +103,56 @@ class Wav2VecFeatureExtractor(nn.Module):
             for ch in range(2)
         ]
         return torch.cat(feats, dim=-1)
+
+
+class ConvAggregator(nn.Module):
+    """fairseq ConvAggegator of wav2vec_large: [B, T, 512] -> [B, T, 512].
+    Each layer is Sequential(left replication pad k-1, Conv1d with bias,
+    Dropout (identity at inference), group norm, ReLU); with equal widths
+    the layer's output is (y + x) * sqrt(residual_scale)."""
+
+    def __init__(self, layers: Tuple[Tuple[int, int, int], ...] = tuple((512, k, 1) for k in range(2, 14)),
+                 residual_scale: float = 0.5, in_dim: int = 512):
+        super().__init__()
+        self.rscale = residual_scale ** 0.5
+        blocks = []
+        cin = in_dim
+        for dim, k, s in layers:
+            blocks.append(nn.Sequential(
+                nn.ReplicationPad1d((k - 1, 0)), nn.Conv1d(cin, dim, k, stride=s), nn.Identity(),
+                GroupNormAll(dim), nn.ReLU(),
+            ))
+            cin = dim
+        self.conv_layers = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.transpose(1, 2)
+        for layer in self.conv_layers:
+            y = layer(x)
+            x = (y + x) * self.rscale if y.shape[1] == x.shape[1] else y
+        return x.transpose(1, 2)
+
+
+class _Wav2VecModel(nn.Module):
+    """The holder of fairseq's ``wav2vec_model`` names."""
+
+    def __init__(self):
+        super().__init__()
+        self.feature_extractor = ConvFeatureExtractor()
+        self.feature_aggregator = ConvAggregator()
+
+
+class Wav2VecEncoder(nn.Module):
+    """wav2vec_large extractor + aggregator: mono 48 kHz frames [B, T, 1600]
+    -> [B, T_w2v, 512] at wav2vec's native ~100 Hz (no resize back to the
+    frame grid: the lip regressor cross-attends to all of it)."""
+
+    def __init__(self):
+        super().__init__()
+        self.wav2vec_model = _Wav2VecModel()
+
+    def forward(self, audio_frames: torch.Tensor) -> torch.Tensor:
+        wav = resample(audio_frames.reshape(audio_frames.shape[0], -1), 48_000, WAV2VEC_SR)
+        wav = F.pad(wav, (320, 0))  # the reference's left zero pad (audio_encoder.py:39-42)
+        m = self.wav2vec_model
+        return m.feature_aggregator(m.feature_extractor(wav))

@@ -1,11 +1,13 @@
-"""Transformer building blocks of the FiLM denoiser.
+"""Transformer building blocks of the FiLM denoiser and the lip regressor.
 
 Counterpart of ``audio2photoreal_tpu/models/blocks.py`` (reference:
-model/modules/transformer_modules.py:105-268): pre-norm layers whose every
-sublayer output is gated by FiLM(t) before the residual add.  The modules
-keep the reference's state-dict names (``self_attn.in_proj_weight``,
-``multihead_attn``, ``film1.block.1``, ``linear1``, ...), so a released
-checkpoint loads as it is.
+model/modules/transformer_modules.py:36-268): ``FiLMDecoderLayer``, a
+pre-norm layer whose every sublayer output is gated by FiLM(t) before the
+residual add; ``RotaryEncoderLayer``, the face denoiser's pre-norm rotary
+cond-encoder layer; ``FeedForward``, the lip regressor's feed-forward.  The
+modules keep the reference's state-dict names (``self_attn.in_proj_weight``,
+``multihead_attn``, ``film1.block.1``, ``linear1``, ``ff.0``, ...), so a
+released checkpoint loads as it is.
 
 Rotary is applied to the FULL d_model before the q/k projections, as the
 reference does (transformer_modules.py:88,238,252-253).
@@ -213,3 +215,45 @@ class FiLMDecoderLayer(nn.Module):
         h = self.ff_drop(F.gelu(self.linear1(self.norm3(x))), g)  # erf GELU, as the reference
         h = self.drop(self.linear2(h), g)
         return x + featurewise_affine(h, self.film3(t))
+
+
+class FeedForward(nn.Module):
+    """Linear -> activation -> dropout -> Linear, as the reference's
+    ``ff`` Sequential (indices 0 and 3 hold the weights).  The activation is
+    erf GELU unless given (the lip regressor's is ReLU)."""
+
+    def __init__(self, dim: int, hidden: int, dropout: float = 0.1, activation: Optional[nn.Module] = None):
+        super().__init__()
+        self.ff = nn.Sequential(nn.Linear(dim, hidden), activation or nn.GELU(), Dropout(dropout),
+                                nn.Linear(hidden, dim))
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        lin1, act, drop, lin2 = self.ff
+        return lin2(drop(act(lin1(x)), generator))
+
+
+class RotaryEncoderLayer(nn.Module):
+    """Pre-norm self-attention with rotary Q/K (the full d_model rotated
+    before the projections) and a GELU feed-forward, each sublayer output
+    dropped before its residual add (reference: TransformerEncoderLayerRotary,
+    transformer_modules.py:36-103).  The face denoiser's cond-encoder."""
+
+    def __init__(self, dim: int, heads: int, ff_size: int, dropout: float = 0.1, flash: bool = False,
+                 hash_dropout: bool = False):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(dim, heads, flash, dropout)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.linear1 = nn.Linear(dim, ff_size)
+        self.linear2 = nn.Linear(ff_size, dim)
+        self.ff_drop = Dropout(dropout, hash_dropout)  # after the GELU
+        self.drop = Dropout(dropout, hash_dropout)  # on each sublayer output
+
+    def forward(self, x: torch.Tensor, rotary: Optional[RotaryTable] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        g = generator
+        h = self.norm1(x)
+        qk = _maybe_rotate(h, rotary)
+        x = x + self.drop(self.self_attn(qk, qk, h, generator=g), g)
+        h = self.ff_drop(F.gelu(self.linear1(self.norm2(x))), g)
+        return x + self.drop(self.linear2(h), g)

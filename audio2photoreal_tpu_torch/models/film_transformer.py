@@ -1,26 +1,27 @@
-"""FiLM-transformer diffusion denoiser, pose branch.
+"""FiLM-transformer diffusion denoiser, pose and face branches.
 
 Counterpart of ``audio2photoreal_tpu/models/film_transformer.py`` (reference:
-model/diffusion.py:82-403) for ``data_format="pose"``:
+model/diffusion.py:82-403):
 
 - ``encode_conditioning`` runs the conditioning once per clip: frozen
-  wav2vec features -> ``cond_projection``, and the 1 fps keyframes ->
-  ``frame_cond_projection`` -> ``frame_norm_cond``.
+  wav2vec features; for pose -> ``cond_projection``, and the 1 fps keyframes
+  -> ``frame_cond_projection`` -> ``frame_norm_cond``; for face the frozen
+  lip regressor's vertices (``encode_lip``) are concatenated to the features
+  (1024 + 1014) -> ``cond_projection`` -> the rotary ``cond_encoder`` layers.
 - ``build_cond_cache`` does, once per clip, everything in a denoise step
   that does not depend on (x, t): the CFG keep-masked memory rows, their
-  cross-attention K/V through all layers, the pooled FiLM vector and the
-  keep-masked keyframe tokens.
+  cross-attention K/V through all layers, the pooled FiLM vector and (pose)
+  the keep-masked keyframe tokens.
 - ``denoise_cached`` is the per-step body: time embedding, the two t-token
-  rows of the memory, the decoder stack and the causal dilated conv post-net.
-  ``denoise`` is the two in a row.
+  rows of the memory, the decoder stack and (pose) the causal dilated conv
+  post-net.  ``denoise`` is the two in a row.
 - ``forward`` is the training forward (film_transformer.py:496-526): encode,
   two independent classifier-free-guidance keep draws (audio, keyframes),
   denoise.  In training mode dropout runs at ``cfg.dropout`` in the decoder
   stack and at a fixed 0.2 in the post-net, drawing from the ``generator``
-  handed in.  The wav2vec frontend is frozen: no gradient reaches it and the
-  optimizer never sees it.
+  handed in.  The wav2vec frontend and the lip regressor are frozen: no
+  gradient reaches them and the optimizer never sees them.
 
-The face branch (lip regressor, rotary cond-encoder) is not ported yet.
 Module names follow the reference's state dict, which
 ``convert.film_denoiser_state_dict_from_jax`` produces from JAX params.
 """
@@ -35,7 +36,8 @@ import torch.nn.functional as F
 
 from audio2photoreal_tpu_torch.core.config import DenoiserConfig
 from audio2photoreal_tpu_torch.models.audio_encoder import Wav2VecFeatureExtractor, feature_frames
-from audio2photoreal_tpu_torch.models.blocks import Dropout, FiLMDecoderLayer
+from audio2photoreal_tpu_torch.models.blocks import Dropout, FiLMDecoderLayer, RotaryEncoderLayer
+from audio2photoreal_tpu_torch.models.lip_regressor import LipRegressor
 from audio2photoreal_tpu_torch.ops.convs import conv1d, valid_conv1d
 from audio2photoreal_tpu_torch.ops.embeddings import sinusoidal_pos_emb
 from audio2photoreal_tpu_torch.ops.rotary import RotaryTable, apply_rotary, make_rotary_table
@@ -45,7 +47,16 @@ class CondTokens(NamedTuple):
     """Precomputed conditioning, constant across denoising steps."""
 
     cond_tokens: torch.Tensor  # [B, Ta, D] projected audio tokens
-    pose_tokens: Optional[torch.Tensor]  # [B, Tk, D] projected keyframes
+    pose_tokens: Optional[torch.Tensor]  # [B, Tk, D] projected keyframes (pose), None (face)
+
+
+def _resize_nearest(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Nearest-exact resize of [B, T, C] along T to n (diffusion.py:309-311).
+    The index is computed in f32 on the CPU, as the JAX package computes it:
+    a CUDA division by a scalar multiplies by its reciprocal."""
+    T = x.shape[1]
+    idx = ((torch.arange(n, dtype=torch.float32) + 0.5) * T / n).to(torch.int64).clamp(0, T - 1)
+    return x[:, idx.to(x.device)]
 
 
 class SinusoidalPosEmb(nn.Module):
@@ -67,16 +78,25 @@ class DecoderStack(nn.Module):
 
 class FiLMDenoiser(nn.Module):
     POSTNET_DROPOUT = 0.2  # fixed, whatever cfg.dropout (film_transformer.py:476-484)
+    LIP_CHUNK = 120  # frames per lip-regressor call (diffusion.py:295-313)
 
     def __init__(self, cfg: DenoiserConfig):
         super().__init__()
         c = self.cfg = cfg
-        if c.data_format != "pose":
-            raise NotImplementedError("face branch: see ROADMAP")
+        if c.data_format not in ("pose", "face"):
+            raise ValueError(f"data_format must be pose or face; got {c.data_format!r}")
         if c.dtype != "float32" or c.frontend_dtype != "float32":
             raise NotImplementedError("bf16 compute: see ROADMAP")
+        pose = c.data_format == "pose"
         D, nf = c.latent_dim, c.nfeats
         self.audio_model = Wav2VecFeatureExtractor().requires_grad_(False)  # frozen
+        if not pose:
+            self.lip_model = LipRegressor().requires_grad_(False)  # frozen
+            self.cond_encoder = nn.ModuleList(
+                RotaryEncoderLayer(D, c.num_heads, c.ff_size, c.dropout, flash=c.flash_attention,
+                                   hash_dropout=c.hash_dropout)
+                for _ in range(c.cond_encoder_layers)
+            )
         self.input_projection = nn.Linear(nf, D)
         self.cond_projection = nn.Linear(c.cond_dim, D)
         self.norm_cond = nn.LayerNorm(D, eps=1e-5)
@@ -91,21 +111,22 @@ class FiLMDenoiser(nn.Module):
         self.emb_len = feature_frames(c.max_seq_length * 1600 // 3)
         self.null_cond_embed = nn.Parameter(torch.zeros(1, self.emb_len, D))
         self.null_cond_hidden = nn.Parameter(torch.zeros(1, D))
-        self.null_pose_embed = nn.Parameter(
-            torch.zeros(1, -(-c.max_seq_length // c.keyframe_step), D)
-        )
-        self.frame_cond_projection = nn.Linear(c.key_feature_dim, D)
-        self.frame_norm_cond = nn.LayerNorm(D, eps=1e-5)
-        # causal dilated conv post-net, receptive field 25 (diffusion.py:201-224)
-        post = [(nf, max(256, nf), 1), (max(256, nf), nf, 2), (nf, nf, 3),
-                (nf, nf, 1), (nf, nf, 2), (nf, nf, 3)]
-        self.post_pose_layers = nn.ModuleList(
-            nn.Conv1d(cin, cout, 3, dilation=d) for cin, cout, d in post
-        )
-        self.final_conv = nn.Conv1d(nf, nf, 1)
-        self.post_drop = Dropout(self.POSTNET_DROPOUT, c.hash_dropout)
+        if pose:
+            self.null_pose_embed = nn.Parameter(
+                torch.zeros(1, -(-c.max_seq_length // c.keyframe_step), D)
+            )
+            self.frame_cond_projection = nn.Linear(c.key_feature_dim, D)
+            self.frame_norm_cond = nn.LayerNorm(D, eps=1e-5)
+            # causal dilated conv post-net, receptive field 25 (diffusion.py:201-224)
+            post = [(nf, max(256, nf), 1), (max(256, nf), nf, 2), (nf, nf, 3),
+                    (nf, nf, 1), (nf, nf, 2), (nf, nf, 3)]
+            self.post_pose_layers = nn.ModuleList(
+                nn.Conv1d(cin, cout, 3, dilation=d) for cin, cout, d in post
+            )
+            self.final_conv = nn.Conv1d(nf, nf, 1)
+            self.post_drop = Dropout(self.POSTNET_DROPOUT, c.hash_dropout)
         self.seqTransDecoder = DecoderStack(
-            FiLMDecoderLayer(D, c.num_heads, c.ff_size, use_cm=True, flash=c.flash_attention,
+            FiLMDecoderLayer(D, c.num_heads, c.ff_size, use_cm=pose, flash=c.flash_attention,
                              dropout=c.dropout, hash_dropout=c.hash_dropout)
             for _ in range(c.num_layers)
         )
@@ -121,6 +142,8 @@ class FiLMDenoiser(nn.Module):
 
     @property
     def rotary(self) -> Optional[RotaryTable]:
+        """The decoder's rotary table (None without ``use_rotary``); the
+        face cond-encoder always rotates, as the JAX package does."""
         return RotaryTable(self.rotary_cos, self.rotary_sin) if self.cfg.use_rotary else None
 
     @torch.no_grad()
@@ -147,13 +170,50 @@ class FiLMDenoiser(nn.Module):
         with torch.no_grad():
             return self.audio_model(audio)
 
+    def lip_vertices(self, audio: torch.Tensor) -> torch.Tensor:
+        """Channel-0 audio [B, S, 2] -> [B, T, 1014] frozen lip vertices, one
+        per 1600-sample frame: the frames in 120-frame chunks stacked into the
+        batch, the last chunk at its true length (diffusion.py:295-313)."""
+        B = audio.shape[0]
+        frames = audio[..., 0].reshape(B, -1, 1600)
+        n_full, rem = divmod(frames.shape[1], self.LIP_CHUNK)
+        pieces = []
+        with torch.no_grad():
+            if n_full:
+                stacked = frames[:, : n_full * self.LIP_CHUNK].reshape(B * n_full, self.LIP_CHUNK, 1600)
+                pieces.append(self.lip_model(stacked).reshape(B, n_full * self.LIP_CHUNK, -1))
+            if rem:
+                pieces.append(self.lip_model(frames[:, n_full * self.LIP_CHUNK:]).reshape(B, rem, -1))
+        return torch.cat(pieces, dim=1)
+
+    def encode_lip(self, audio: torch.Tensor, n_cond: int) -> torch.Tensor:
+        """[B, S, 2] -> [B, n_cond, 1014]: ``lip_vertices`` resized from T
+        frames to the n_cond audio tokens (``_resize_nearest``)."""
+        return _resize_nearest(self.lip_vertices(audio), n_cond)
+
     def encode_conditioning(
         self,
         audio: torch.Tensor,  # [B, S, 2]
-        keyframes: torch.Tensor,  # [B, Tk, key_dim]
-        keyframe_valid: Optional[torch.Tensor] = None,  # [B, Tk] 1 = valid
+        keyframes: Optional[torch.Tensor] = None,  # [B, Tk, key_dim] (pose)
+        keyframe_valid: Optional[torch.Tensor] = None,  # [B, Tk] 1 = valid (pose)
+        generator: Optional[torch.Generator] = None,  # cond-encoder dropout (face, training)
+        lip_verts: Optional[torch.Tensor] = None,  # [B, T, 1014] ``lip_vertices(audio)`` (face)
     ) -> CondTokens:
-        cond_tokens = self.cond_projection(self.encode_audio(audio))
+        """Per-clip conditioning.  A face model takes the lip vertices from
+        ``lip_verts`` when given (as the JAX package's argument of that name),
+        else computes them."""
+        feats = self.encode_audio(audio)
+        if self.cfg.data_format == "face":
+            lip = self.lip_vertices(audio) if lip_verts is None else lip_verts
+            feats = torch.cat([feats, _resize_nearest(lip, feats.shape[1])], dim=-1)
+            cond_tokens = self.cond_projection(feats)
+            rot = RotaryTable(self.rotary_cos, self.rotary_sin)
+            for layer in self.cond_encoder:
+                cond_tokens = layer(cond_tokens, rotary=rot, generator=generator)
+            return CondTokens(cond_tokens, None)
+        if keyframes is None:
+            raise ValueError("the pose denoiser needs keyframes")
+        cond_tokens = self.cond_projection(feats)
         kf = keyframes
         if keyframe_valid is not None:
             kf = kf * keyframe_valid[..., None]  # zero the unknown (diffusion.py:319-320)
@@ -180,7 +240,8 @@ class FiLMDenoiser(nn.Module):
                          keep_mask_pose: Optional[torch.Tensor] = None) -> dict:
         """Everything in the denoise step that does not depend on (x, t).
         ``keep_mask_pose`` keeps the keyframe tokens (default: ``keep_mask``)."""
-        if cond.pose_tokens is None:
+        pose = self.cfg.data_format == "pose"
+        if pose and cond.pose_tokens is None:
             raise ValueError("the pose denoiser needs keyframe tokens")
         keep_e = keep_mask[:, None, None]
         n_cond = cond.cond_tokens.shape[1]
@@ -193,13 +254,16 @@ class FiLMDenoiser(nn.Module):
         rot = self.rotary
         mem_rot = apply_rotary(mem_cond, rot) if rot is not None else mem_cond
         kw, kb, vw, vb = self._stacked_cross_kv_weights()
-        n_pose = cond.pose_tokens.shape[1]
-        keep_p = keep_e if keep_mask_pose is None else keep_mask_pose[:, None, None]
+        pose_tokens = None
+        if pose:
+            n_pose = cond.pose_tokens.shape[1]
+            keep_p = keep_e if keep_mask_pose is None else keep_mask_pose[:, None, None]
+            pose_tokens = torch.where(keep_p, cond.pose_tokens, self.null_pose_embed[:, :n_pose])
         return {
             "ks": F.linear(mem_rot, kw, kb),  # [B, n_cond, L*D]
             "vs": F.linear(mem_cond, vw, vb),
             "cond_hidden": cond_hidden,
-            "pose_tokens": torch.where(keep_p, cond.pose_tokens, self.null_pose_embed[:, :n_pose]),
+            "pose_tokens": pose_tokens,
             "n_cond": n_cond,
         }
 
@@ -222,7 +286,8 @@ class FiLMDenoiser(nn.Module):
         for i, layer in enumerate(self.layers):
             cross_kv = (ks[..., i * D : (i + 1) * D], vs[..., i * D : (i + 1) * D])
             h = layer(h, t_vec, cross_kv, cache["pose_tokens"], rotary=rot, generator=generator)
-        return self._postnet(self.final_layer(h), generator)
+        out = self.final_layer(h)
+        return self._postnet(out, generator) if self.cfg.data_format == "pose" else out
 
     def denoise(
         self,
@@ -240,7 +305,7 @@ class FiLMDenoiser(nn.Module):
         x: torch.Tensor,  # [B, T, nfeats] noisy motion
         t: torch.Tensor,  # [B] timesteps
         audio: torch.Tensor,  # [B, S, 2] raw 48 kHz stereo
-        keyframes: torch.Tensor,  # [B, Tk, key_dim]
+        keyframes: Optional[torch.Tensor] = None,  # [B, Tk, key_dim] (pose)
         keyframe_valid: Optional[torch.Tensor] = None,
         cond_drop_prob: float = 0.0,
         generator: Optional[torch.Generator] = None,  # CPU generator of this step's draws
@@ -248,7 +313,7 @@ class FiLMDenoiser(nn.Module):
         """The training forward: encode, classifier-free-guidance dropout of
         the audio and, independently, of the keyframes (diffusion.py:326,
         :367), denoise."""
-        cond = self.encode_conditioning(audio, keyframes, keyframe_valid)
+        cond = self.encode_conditioning(audio, keyframes, keyframe_valid, generator)
         B = x.shape[0]
         if cond_drop_prob > 0.0:
             u = torch.rand((2, B), generator=generator).to(x.device)

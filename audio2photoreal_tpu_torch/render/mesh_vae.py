@@ -30,8 +30,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from audio2photoreal_tpu_torch.kernels.display_pack import finalize_display
 from audio2photoreal_tpu_torch.render.blocks import ConvBlock, ConvDownBlock, UpConvBlockDeep, UpscaleNet
-from audio2photoreal_tpu_torch.render.color import linear2display_batch
 from audio2photoreal_tpu_torch.render.face import FaceDecoderFrontal
 from audio2photoreal_tpu_torch.render.geometry import GeometryModule, compute_view_cos, project_points
 from audio2photoreal_tpu_torch.render.layers import Conv2dWNUB, LinearWN, reset_parameters, resize_bilinear, tile2d
@@ -294,24 +294,26 @@ class BodyAvatar(nn.Module):
 
     # -- decode ---------------------------------------------------------- #
 
-    def forward_tex(self, tex_mean_rec, tex_view_rec, shadow_map, final_seam: bool = True,
-                    shadow_seamed=None) -> torch.Tensor:
-        """(:230-252): seam fixups → 2k upscale (+ pixel-shuffle residual) →
-        ×std+mean → shadow multiply → seam fixups.  ``final_seam=False``
-        leaves the last seam pass to the display path; ``shadow_seamed``
-        reuses a shadow whose seam pass is already done."""
-        a = self.assets
-        S = self.cfg.upscale_size
+    def upscale_tex(self, tex_mean_rec, tex_view_rec) -> torch.Tensor:
+        """The first half of ``forward_tex``: seam fixups, then the 2k
+        upscale with its pixel-shuffle residual; the raw texture before
+        x std + mean."""
         x = torch.cat([tex_mean_rec, tex_view_rec], dim=1)
-        tex = a.seam.apply(tex_mean_rec + tex_view_rec, 1)
-        tex = resize_bilinear(tex, (S, S)) + self.upscale_net(x)
+        tex = self.assets.seam.apply(tex_mean_rec + tex_view_rec, 1)
+        S = self.cfg.upscale_size
+        return resize_bilinear(tex, (S, S)) + self.upscale_net(x)
+
+    def forward_tex(self, tex_mean_rec, tex_view_rec, shadow_map, shadow_seamed=None) -> torch.Tensor:
+        """(:230-252): seam fixups → 2k upscale (+ pixel-shuffle residual) →
+        ×std+mean → shadow multiply → seam fixups; ``shadow_seamed`` reuses
+        a shadow whose seam pass is already done.  The display path runs the
+        second half as ``finalize_display`` instead (``render_view``)."""
+        a = self.assets
+        tex = self.upscale_tex(tex_mean_rec, tex_view_rec)
         tex = tex * a.tex_std + a.tex_mean[None]
         if shadow_seamed is None:
             shadow_seamed = a.seam_2k.apply(shadow_map, 2)
-        tex = tex * shadow_seamed
-        if final_seam:
-            tex = a.seam_2k.apply(tex, 2)
-        return tex
+        return a.seam_2k.apply(tex * shadow_seamed, 2)
 
     def decode_frame(
         self,
@@ -339,13 +341,6 @@ class BodyAvatar(nn.Module):
         preds.update(geom=geom_rec, shadow_seamed=shadow_seamed, **dec, **shadow)
         return preds
 
-    def display_texture(self, tex_rec: torch.Tensor) -> torch.Tensor:
-        """Linear texture → display space rounded to 8 bits, with the last
-        seam pass done in display space (the JAX package's pack_rgb8 +
-        fused_apply_packed, without the int32 packing)."""
-        q = torch.round(linear2display_batch(tex_rec.float())).clamp(0.0, 255.0)
-        return self.assets.seam_2k.apply_display(q, 2)
-
     def render_view(self, decoded: Dict[str, torch.Tensor], campos, K, Rt,
                     render_display: bool = True) -> Dict[str, torch.Tensor]:
         """The PER-CAMERA half of a frame: view-conditioned texture residual,
@@ -354,10 +349,17 @@ class BodyAvatar(nn.Module):
         a = self.assets
         geom_rec = decoded["geom"]
         dec_view = self.decoder_view(geom_rec, decoded["tex_mean_rec"], campos, a.geo)
-        tex_rec = self.forward_tex(decoded["tex_mean_rec"], dec_view["tex_view_rec"], None,
-                                   final_seam=not render_display, shadow_seamed=decoded["shadow_seamed"])
+        if render_display:
+            # x std + mean, x shadow and the display transform in one pass
+            # (the display_pack kernel on the card); the last seam pass runs
+            # in display space
+            tex = self.upscale_tex(decoded["tex_mean_rec"], dec_view["tex_view_rec"])
+            texture, tex_rec = finalize_display(tex, decoded["shadow_seamed"], a.tex_mean, a.tex_std)
+            texture = a.seam_2k.apply_display(texture, 2)
+        else:
+            tex_rec = texture = self.forward_tex(decoded["tex_mean_rec"], dec_view["tex_view_rec"], None,
+                                                 shadow_seamed=decoded["shadow_seamed"])
         pix, depth = project_points(geom_rec, K, Rt)
-        texture = self.display_texture(tex_rec) if render_display else tex_rec
         rgb, raster = render_mesh(pix, depth, a.geo.faces, a.geo.uv_coords, a.geo.uv_faces, texture,
                                   self.cfg.image_height, self.cfg.image_width, display=render_display)
         return {"rgb": rgb, "tex_rec": tex_rec, "depth": raster.depth, "pix_to_face": raster.face_index,

@@ -12,9 +12,10 @@ exception and a nonzero exit.
 2. build: compile every kernel library from kernels/csrc/ (nvcc, sm_90a), one
    nvcc per library, all started together; ptxas registers and spills.
 3. kernel vs plain, attention: the CUDA attention kernel against its plain
-   PyTorch version on the card, f32 and bf16, at the denoiser's shapes and a
-   small ragged masked case; max abs error, the time of each, the time of
-   ``scaled_dot_product_attention`` with the same mask (a yardstick only),
+   PyTorch version on the card, f32 and bf16, at the pose and face
+   denoisers' shapes (Dh 64 and 128), the face cond-encoder's 1998 x 1998,
+   and a small ragged masked case; max abs error, the time of each, the time
+   of ``scaled_dot_product_attention`` with the same mask (a yardstick only),
    and the bound (f32 FLOPs over the CUDA-core rate, bf16 FLOPs over the
    tensor-core rate, against bytes over the HBM rate).
 4. kernel vs plain, raster: the tile rasterizer against its plain version at
@@ -27,19 +28,31 @@ exception and a nonzero exit.
    each frame equal to the batch-8 result for its pose.
 5. slice parity: a full-width pose denoiser from ``--seed``, encode + cached
    CFG + DDIM-5 from one numpy x_T, on the card (with the kernel) against the
-   CPU (plain attention).
+   CPU (plain attention), within 1e-3; then the same for the full-width face
+   denoiser (latent 512, 8 layers, 4 heads, with its lip regressor and
+   rotary cond-encoder) on 20 s of audio at the face guidance 10.0, within
+   1e-4 of its output's largest magnitude (~300 with random weights).
 6. render parity: a full-width BodyAvatar (RendererConfig() defaults) from
    ``--seed``, 1 frame x 2 cameras through render_sequence_multicam, on the
-   card (kernel) against the CPU (plain raster): uint8 frames within 1 count
-   on >= 99.9% of the pixels that either render covers, coverage equal on
-   >= 99.99% of all pixels.
-7. main path: ``apps.generate.generate`` on a synthetic person, full-width
-   pose model, DDIM-500, CFG 2.0, 2 samples (attention kernel launches
-   counted: 8 layers x 2 attentions x 500 steps); then sample 0's first 64
-   frames with the ground-truth face codes of the same chunks rendered at
-   full width by ``load_body_renderer`` + ``render_full_video``: frame batch
-   8, the 2 rig cameras, the mesh_density=10 assets (raster launches
-   counted: 8 batches x 2 cameras).
+   card (kernels) against the CPU (plain versions): uint8 frames within 1
+   count on >= 99.9% of the pixels that either render covers, coverage equal
+   on >= 99.99% of all pixels.
+7. main path: ``apps.generate.generate`` on a synthetic person, the
+   full-width face model at DDIM-500, CFG 10.0, 2 samples (attention kernel
+   launches counted: the cond-encoder's 2, then 8 layers x 2 attentions x
+   500 steps; the lip regressor's share of the encode timed), then the
+   full-width pose model at DDIM-500, CFG 2.0, 2 samples (8 x 2 x 500
+   launches); after each, 5 more DDIM steps of the same model, timed alone
+   and then under torch.profiler (device busy, launches, attention and GEMM
+   ms per step); then sample 0's first 64 frames with the face model's codes
+   of the same audio rendered at full width by ``load_body_renderer`` +
+   ``render_full_video``: frame batch 8, the 2 rig cameras, the
+   mesh_density=10 assets (raster and display kernel launches counted: 8
+   batches x 2 cameras each).  Then the display kernel against its plain
+   version on the render's own tensors (frame batch 8, 2048^2) and on a
+   ragged H 200 x W 2047 case: >= 99.99% of the 8-bit values exact, none
+   more than 1 count off, tex_rec bit for bit; times with and without the
+   tex_rec output and in the packed mode, the plain version's, the bound.
 8. kernel vs plain, attention training: at the pose trainer's shapes (B 64,
    H 4, Tq 600, Tk 600 and 2000, Dh 64), the face width (B 16, Dh 128) and
    the ragged masked causal case, f32 and bf16: the forward with the
@@ -85,22 +98,36 @@ PKG = "audio2photoreal_tpu_torch"
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}  # kernel vs plain, unit-normal inputs
 SLICE_TOL = 1e-3  # card vs CPU pred_xstart after DDIM-5
+# the face slice's bar, relative to its output's largest magnitude: the random
+# full-width face model at guidance 10 puts pred_xstart at a scale of ~300
+# (random lip vertices of scale ~18 feed its conditioning), where f32 rounding
+# alone differs by more than the pose slice's absolute 1e-3
+FACE_SLICE_REL_TOL = 1e-4
 RASTER_TOL = 1e-5  # depth / UV / barycentrics, kernel vs plain
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by input
 # type, f32 on the CUDA cores and bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 RASTER_FLOPS_PER_TEST = 17  # csrc/raster.cu: 9 mul + 8 add/sub per listed (pixel, face)
-# (B, H, Tq, Tk, Dh, masked): self- and cross-attention of the pose denoiser
-# under CFG with 2 samples, the face width, and a ragged kv_valid + causal case
+# (B, H, Tq, Tk, Dh, masked): self- and cross-attention of the pose and the
+# face denoiser under CFG with 2 samples, the face cond-encoder's
+# self-attention over the 1998 audio tokens of 2 samples, and a ragged
+# kv_valid + causal case
 KERNEL_CASES = [
     (4, 4, 600, 600, 64, False),
     (4, 4, 600, 2000, 64, False),
+    (4, 4, 600, 600, 128, False),
     (4, 4, 600, 2000, 128, False),
+    (2, 4, 1998, 1998, 128, False),
     (2, 3, 77, 203, 64, True),
 ]
 MAIN_CASE = (4, 4, 600, 2000, 64, False)  # the kernel's numbers in the summary line
 RENDER_FRAMES, RENDER_BATCH = 64, 8
+FACE_GUIDANCE = 10.0  # the reference's face guidance (bench.py:142-160)
+# display kernel vs plain: >= 99.99% of the 8-bit channel values exact, none
+# more than one count off (powf against torch.pow may cross a .5)
+DISPLAY_EXACT_SHARE, DISPLAY_MAX_COUNT = 0.9999, 1
+DISPLAY_FLOPS_PER_VALUE = 24  # csrc/display_pack.cu: f32 operations per channel texel, powf as one
 # (B, H, Tq, Tk, Dh, masked): the pose trainer's self- and cross-attention at
 # batch 64, the face width, and a ragged kv_valid + causal case
 TRAIN_KERNEL_CASES = [
@@ -144,11 +171,12 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    from audio2photoreal_tpu_torch.kernels import build, flash_attn, raster
+    from audio2photoreal_tpu_torch.kernels import build, display_pack, flash_attn, raster
 
     libraries = [(flash_attn.NAME, flash_attn.SOURCES, flash_attn.library),
                  (flash_attn.BWD_NAME, flash_attn.BWD_SOURCES, flash_attn.bwd_library),
-                 (raster.NAME, raster.SOURCES, raster.library)]
+                 (raster.NAME, raster.SOURCES, raster.library),
+                 (display_pack.NAME, display_pack.SOURCES, display_pack.library)]
 
     def one(lib):
         name, sources, load = lib
@@ -409,6 +437,75 @@ def _pose_model(seed: int, **overrides):
     return cfg, model.eval()
 
 
+def _face_model(seed: int):
+    """The face denoiser at the reference's face width: latent 512, 8
+    layers, 4 heads (Dh 128), FF 1024, 256-d codes, with its lip regressor
+    (wav2vec_large) and rotary cond-encoder; random weights from ``seed``."""
+    import torch
+
+    from audio2photoreal_tpu_torch.core.config import DenoiserConfig
+    from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
+
+    cfg = DenoiserConfig(data_format="face", nfeats=256, latent_dim=512, ff_size=1024, num_layers=8,
+                         num_heads=4, flash_attention=True)
+    model = FiLMDenoiser(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return cfg, model.eval()
+
+
+def phase_face_slice_parity(seed: int) -> None:
+    """The full-width face model, card (kernels) against CPU (plain
+    versions): encode 20 s of audio (wav2vec, lip regressor, cond-encoder),
+    then cached CFG at the face guidance and DDIM-5 from one numpy x_T."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.diffusion.respace import maybe_respaced
+    from audio2photoreal_tpu_torch.diffusion.sampling import ddim_sample_loop
+    from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts
+    from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn_cached
+
+    cfg, model_cpu = _face_model(seed)
+    model_gpu = copy.deepcopy(model_cpu).cuda()
+    rng = np.random.RandomState(seed + 3)
+    B, T = 1, cfg.max_seq_length
+    audio = rng.randn(B, T * 1600, 2).astype(np.float32)  # z-normed 48 kHz stereo
+    x_T = rng.randn(B, T, cfg.nfeats).astype(np.float32)
+    sched = maybe_respaced("cosine", 1000, "ddim5")
+
+    def run(model, device):
+        with torch.no_grad():
+            a = torch.from_numpy(audio).to(device)
+            lip = model.lip_vertices(a)
+            cond = model.encode_conditioning(a, lip_verts=lip)
+            model_fn = cfg_model_fn_cached(model, cond, FACE_GUIDANCE)
+            res = ddim_sample_loop(sched, "xstart", model_fn, torch.from_numpy(x_T).to(device))
+        return lip.cpu().numpy(), cond.cond_tokens.cpu().numpy(), res.pred_xstart.cpu().numpy()
+
+    before = launch_counts[flash_attn.NAME]
+    t0 = time.perf_counter()
+    gpu = run(model_gpu, "cuda")
+    gpu_s = time.perf_counter() - t0
+    launches = launch_counts[flash_attn.NAME] - before
+    t0 = time.perf_counter()
+    cpu = run(model_cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    errs = [float(np.abs(g - c).max()) for g, c in zip(gpu, cpu)]
+    scales = [float(np.abs(c).max()) for c in cpu]
+    want_launches = cfg.cond_encoder_layers + cfg.num_layers * 2 * 5
+    row = dict(steps=5, guidance=FACE_GUIDANCE, batch=B, latent=cfg.latent_dim, layers=cfg.num_layers,
+               heads=cfg.num_heads, lip_max_abs_err=errs[0], lip_scale=scales[0],
+               cond_tokens_max_abs_err=errs[1], cond_tokens_scale=scales[1], max_abs_err=errs[2],
+               pred_scale=scales[2], rel_err=errs[2] / scales[2], rel_tol=FACE_SLICE_REL_TOL,
+               kernel_launches=launches, expected_launches=want_launches,
+               gpu_s=gpu_s, cpu_s=cpu_s, finite=bool(np.isfinite(gpu[2]).all()))
+    emit("face_slice_parity", **row)
+    if not (row["finite"] and row["rel_err"] <= FACE_SLICE_REL_TOL and launches == want_launches):
+        raise AssertionError(f"card and CPU disagree on the face slice: {row}")
+
+
 def phase_slice_parity(seed: int) -> None:
     import copy
 
@@ -450,7 +547,7 @@ def phase_slice_parity(seed: int) -> None:
     cpu_s = time.perf_counter() - t0
     err = float(np.abs(gpu - cpu).max())
     row = dict(steps=5, guidance=2.0, batch=B, latent=cfg.latent_dim, layers=cfg.num_layers,
-               max_abs_err=err, tol=SLICE_TOL, kernel_launches=launches,
+               max_abs_err=err, pred_scale=float(np.abs(cpu).max()), tol=SLICE_TOL, kernel_launches=launches,
                gpu_s=gpu_s, cpu_s=cpu_s, finite=bool(np.isfinite(gpu).all()))
     emit("slice_parity", **row)
     if not (row["finite"] and err <= SLICE_TOL and launches == cfg.num_layers * 2 * 5):
@@ -510,16 +607,127 @@ def phase_render_parity(seed: int) -> None:
         raise AssertionError(f"card and CPU disagree on the render: {row}")
 
 
+def _display_inputs(model, decoded, cams, frames: int):
+    """The display pass's inputs on the render's own tensors: the raw 2048^2
+    texture of the first camera, the seam-resampled shadow, the texture mean
+    and std, as ``render_view`` hands them to the kernel."""
+    import numpy as np
+    import torch
+
+    c = next(iter(cams.values()))
+    campos = torch.as_tensor(np.asarray(c.campos), device="cuda")[None].expand(frames, 3)
+    with torch.no_grad():
+        view = model.decoder_view(decoded["geom"], decoded["tex_mean_rec"], campos, model.assets.geo)
+        tex = model.upscale_tex(decoded["tex_mean_rec"], view["tex_view_rec"])
+    return tex, decoded["shadow_seamed"], model.assets.tex_mean, model.assets.tex_std
+
+
+def _display_compare(args) -> dict:
+    """Kernel against plain: 8-bit values (planar and packed), tex_rec bit
+    for bit, times of each mode and of the plain version, and the bound."""
+    import torch
+
+    from audio2photoreal_tpu_torch.kernels import display_pack
+
+    tex = args[0]
+    B, _, H, W = tex.shape
+    got, rec = display_pack.finalize_display(*args)
+    packed = display_pack.finalize_display_packed(*args)
+    want, want_rec = display_pack.finalize_display_reference(*args)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    out = dict(B=B, H=H, W=W, exact_share=float((diff == 0).float().mean()), max_count_diff=int(diff.max()),
+               max_abs_err=float(diff.max()), tex_rec_equal=bool(torch.equal(rec, want_rec)),
+               packed_equal_planar=bool(torch.equal(packed, display_pack.pack_rgb8(got))),
+               exact_bar=DISPLAY_EXACT_SHARE, count_bar=DISPLAY_MAX_COUNT)
+    del got, rec, packed, want, want_rec, diff
+    plain = lambda: display_pack.finalize_display_reference(*args)  # noqa: E731
+    kern = lambda: display_pack.finalize_display(*args)  # noqa: E731
+    # in turns: plain, kernel, kernel, plain
+    p1, k1, k2, p2 = _time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain)
+    n = H * W
+    values = B * 3 * n
+    planar_bytes = 4 * (values + B * n + 3 * n) + 4 * 2 * values  # display and tex_rec written
+    bound_ms, bound_by = _bound(planar_bytes, DISPLAY_FLOPS_PER_VALUE * values)
+    out.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=planar_bytes)
+    # the same kernel without the tex_rec output, and in the packed mode
+    out["no_tex_rec_ms"] = _time_ms(lambda: display_pack.finalize_display(*args, with_tex_rec=False))
+    out["no_tex_rec_bound_ms"] = _bound(planar_bytes - 4 * values, DISPLAY_FLOPS_PER_VALUE * values)[0]
+    out["packed_ms"] = _time_ms(lambda: display_pack.finalize_display_packed(*args))
+    out["packed_bound_ms"] = _bound(4 * (values + B * n + 3 * n) + 4 * B * n, DISPLAY_FLOPS_PER_VALUE * values)[0]
+    out["ok"] = (out["exact_share"] >= DISPLAY_EXACT_SHARE and out["max_count_diff"] <= DISPLAY_MAX_COUNT
+                 and out["tex_rec_equal"] and out["packed_equal_planar"])
+    return out
+
+
+def _profile_ddim(model_dir: str, guidance: float, seed: int, steps: int = 5) -> dict:
+    """``steps`` DDIM steps of generate's loop (cached CFG, 2 clips of 20 s,
+    random z-normed audio) on a model loaded as generate loads it: the wall
+    per step without the profiler (after a warm-up loop), then the same loop
+    under torch.profiler for the device-busy time, launches and the
+    attention kernel's share per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio2photoreal_tpu_torch.apps.generate import load_model
+    from audio2photoreal_tpu_torch.diffusion.respace import maybe_respaced
+    from audio2photoreal_tpu_torch.diffusion.sampling import ddim_sample_loop
+    from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn_cached
+
+    model = load_model(model_dir, "cuda")
+    c = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, T = 2, c.max_seq_length
+    audio = torch.randn((B, T * 1600, 2), generator=g, device="cuda")
+    kf = kv = None
+    if c.data_format == "pose":
+        kf = torch.randn((B, -(-T // c.keyframe_step), c.key_feature_dim), generator=g, device="cuda")
+        kv = torch.ones(kf.shape[:2], device="cuda")
+    x_T = torch.randn((B, T, c.nfeats), generator=g, device="cuda")
+    sched = maybe_respaced("cosine", 1000, f"ddim{steps}")
+    with torch.no_grad():
+        fn = cfg_model_fn_cached(model, model.encode_conditioning(audio, kf, kv), guidance)
+        run = lambda: ddim_sample_loop(sched, "xstart", fn, x_T)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    per = {}
+    launches = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total / 1e3 / steps
+            launches += e.count
+    busy = sum(per.values())
+    if busy == 0.0:
+        raise AssertionError("torch.profiler recorded no device time")
+    attn = sum(v for k, v in per.items() if "attn_fwd_kernel" in k)
+    gemm = sum(v for k, v in per.items() if "gemm" in k.lower())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+    return dict(profiled_steps=steps, step_wall_ms=wall_ms, step_device_ms=busy,
+                step_idle_share=1.0 - busy / wall_ms, step_device_launches=launches / steps,
+                step_attn_fwd_ms=attn, step_gemm_ms=gemm, step_top_kernels_ms=[[k[:80], v] for k, v in top])
+
+
 def phase_main_path(seed: int, smi: str) -> dict:
+    """The face generate, the pose generate, and the render of the two
+    (phases 7-9 of the head note); the display kernel against its plain
+    version on the render's tensors."""
     import numpy as np
     import torch
 
     from audio2photoreal_tpu_torch.apps.generate import MODEL_FILE, find_stats, generate
     from audio2photoreal_tpu_torch.apps.render_pipeline import load_body_renderer
     from audio2photoreal_tpu_torch.core.config import DataConfig, DiffusionConfig, save_config
-    from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
     from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
-    from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts, raster
+    from audio2photoreal_tpu_torch.kernels import display_pack, flash_attn, launch_counts, raster
     from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets, save_renderer_bundle, synthetic_rig
     from audio2photoreal_tpu_torch.render.mesh_vae import RendererConfig
 
@@ -527,54 +735,75 @@ def phase_main_path(seed: int, smi: str) -> dict:
     person, num_samples, steps = "SYNTH01", 2, 500
     t0 = time.perf_counter()
     make_synthetic_person(WORK, person, num_scenes=8, frames_per_scene=600, seed=seed)
-    cfg, model = _pose_model(seed)
-    model_dir = os.path.join(WORK, "pose_model")
-    datacfg = DataConfig(person=person, max_seq_length=cfg.max_seq_length)
-    save_config(model_dir, denoiser=cfg, diffusion=DiffusionConfig(), data=datacfg)
-    torch.save(model.state_dict(), os.path.join(model_dir, MODEL_FILE))
+    dirs, cfgs = {}, {}
+    for fmt, build in (("face", _face_model), ("pose", _pose_model)):
+        cfgs[fmt], model = build(seed)
+        dirs[fmt] = os.path.join(WORK, f"{fmt}_model")
+        save_config(dirs[fmt], denoiser=cfgs[fmt], diffusion=DiffusionConfig(),
+                    data=DataConfig(person=person, data_format=fmt, max_seq_length=cfgs[fmt].max_seq_length))
+        torch.save(model.state_dict(), os.path.join(dirs[fmt], MODEL_FILE))
+        del model
+    fcfg, cfg = cfgs["face"], cfgs["pose"]
     setup_s = time.perf_counter() - t0
+    T = cfg.max_seq_length
+    audio_s = num_samples * T / 30.0
 
-    # --- pose: generate ---------------------------------------------------
+    # --- face: generate ---------------------------------------------------
     timings: dict = {}
     launch_counts.clear()
     t0 = time.perf_counter()
-    path = generate(model_dir, WORK, num_samples=num_samples, guidance_param=2.0,
+    face_path = generate(dirs["face"], WORK, num_samples=num_samples, guidance_param=FACE_GUIDANCE,
+                         timestep_respacing=f"ddim{steps}", device="cuda", timings=timings)
+    face_s = time.perf_counter() - t0
+    face_attn = launch_counts[flash_attn.NAME]
+    face_res = np.load(face_path, allow_pickle=True).item()
+    face_prof = _profile_ddim(dirs["face"], FACE_GUIDANCE, seed)
+    face_checks = {
+        "motions_shape": list(face_res["motions"].shape) == [num_samples, fcfg.nfeats, 1, T],
+        "motions_finite": bool(np.isfinite(face_res["motions"]).all()),
+        "keys": sorted(face_res) == ["audio", "gt", "lengths", "motions"],
+        # the cond-encoder's self-attentions once, then 8 layers x 2 attentions x 500 steps
+        "attention_launches": face_attn == fcfg.cond_encoder_layers + fcfg.num_layers * 2 * steps,
+    }
+    emit("main_path_face", nvidia_smi=smi, samples=num_samples, ddim_steps=steps, guidance=FACE_GUIDANCE,
+         latent=fcfg.latent_dim, layers=fcfg.num_layers, heads=fcfg.num_heads, ff=fcfg.ff_size,
+         encode_s=timings["encode_s"], lip_s=timings["lip_s"], ddim_s=timings["ddim_s"],
+         ddim_step_ms=1e3 * timings["ddim_s"] / steps, generate_s=face_s, audio_s=audio_s,
+         audio_s_per_wall_s=audio_s / face_s, kernel_launches=face_attn,
+         motions_shape=list(face_res["motions"].shape), **face_prof, checks=face_checks)
+    if not all(face_checks.values()):
+        raise AssertionError(f"main path (face) checks failed: {face_checks}")
+
+    # --- pose: generate ---------------------------------------------------
+    timings = {}
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    path = generate(dirs["pose"], WORK, num_samples=num_samples, guidance_param=2.0,
                     timestep_respacing=f"ddim{steps}", device="cuda", timings=timings)
     total_s = time.perf_counter() - t0
     attn_launches = launch_counts[flash_attn.NAME]
 
     res = np.load(path, allow_pickle=True).item()
-    T = cfg.max_seq_length
+    pose_prof = _profile_ddim(dirs["pose"], 2.0, seed)
     checks = {
         "motions_shape": list(res["motions"].shape) == [num_samples, cfg.nfeats, 1, T],
         "motions_finite": bool(np.isfinite(res["motions"]).all()),
         "keys": all(k in res for k in ("gt", "audio", "lengths", "keyframes")),
         "attention_launches": attn_launches == cfg.num_layers * 2 * steps,
+        # face and pose runs were made from the same audio (sample/generate.py:187-189)
+        "face_audio_equal": bool(np.array_equal(face_res["audio"], res["audio"])),
     }
-    audio_s = num_samples * T / 30.0
     emit("main_path_generate", nvidia_smi=smi, samples=num_samples, ddim_steps=steps, guidance=2.0,
          latent=cfg.latent_dim, layers=cfg.num_layers, heads=cfg.num_heads,
          setup_s=setup_s, encode_s=timings["encode_s"], ddim_s=timings["ddim_s"],
          generate_s=total_s, audio_s=audio_s, audio_s_per_wall_s=audio_s / total_s,
-         kernel_launches=attn_launches, motions_shape=list(res["motions"].shape), checks=checks)
-
-    # --- the face branch's stand-in: ground-truth face codes of the same
-    # test chunks, with the same audio, in the face model's results.npy layout
-    t0 = time.perf_counter()
-    scenes = load_local_data(WORK, person)
-    stats = find_stats(os.path.join(WORK, person))
-    face_ds = SocialDataset(scenes, stats, DataConfig(person=person, data_format="face",
-                                                      max_seq_length=T), "test")
-    chunks = [face_ds.get_chunk(i) for i in range(num_samples)]
-    codes = np.stack([stats.inv_code(c["motion"]) for c in chunks])  # [B, T, 256]
-    face_res = {"motions": codes.transpose(0, 2, 1)[:, :, None], "gt": codes.transpose(0, 2, 1)[:, :, None],
-                "audio": stats.inv_audio(np.stack([c["audio"] for c in chunks])),
-                "lengths": np.stack([c["lengths"] for c in chunks])}
-    np.save(os.path.join(WORK, "face_results.npy"), face_res)
-    if not np.array_equal(face_res["audio"], res["audio"]):
-        raise AssertionError("the face codes' audio differs from the pose run's audio")
+         kernel_launches=attn_launches, motions_shape=list(res["motions"].shape), **pose_prof, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"main path (pose) checks failed: {checks}")
 
     # --- render: a full-width renderer bundle, loaded as a user would --------
+    t0 = time.perf_counter()
+    stats = find_stats(os.path.join(WORK, person))
     rcfg = RendererConfig()
     bundle_assets = make_synthetic_assets(rcfg, seed=seed, mesh_density=10)
     # the rig frames the person where its root stands on average (pose[0:3])
@@ -586,6 +815,7 @@ def phase_main_path(seed: int, smi: str) -> dict:
     renderer = load_body_renderer(bundle, frame_batch=RENDER_BATCH, device="cuda")
     render_setup_s = time.perf_counter() - t0
     n = RENDER_FRAMES
+    # sample 0's pose and its face model's codes, as generate --plot pairs them
     body = res["motions"][0].transpose(2, 0, 1)[:n, :, 0]
     face = face_res["motions"][0].transpose(2, 0, 1)[:n, :, 0]
 
@@ -596,31 +826,58 @@ def phase_main_path(seed: int, smi: str) -> dict:
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     raster_launches = launch_counts[raster.NAME]
+    display_launches = launch_counts[display_pack.NAME]
     render_attn = launch_counts[flash_attn.NAME]
     t0 = time.perf_counter()
     video = renderer.render_full_video(
-        {"audio": res["audio"][0][: n * datacfg.audio_per_frame], "body_motion": body, "face_motion": face},
+        {"audio": res["audio"][0][: n * 1600], "body_motion": body, "face_motion": face},
         os.path.join(WORK, "sample00_rep00"))
     video_s = time.perf_counter() - t0
     covered = (frames.reshape(n, rcfg.image_height, 2, rcfg.image_width, 3).any(-1)).mean(axis=(1, 3))
-    checks.update({
+    per_view = (n // RENDER_BATCH) * len(cams)
+    checks = {
+        "face_codes_from_face_model": face_res["motions"].shape[1] == fcfg.nfeats,
         "frames_shape": list(frames.shape) == [n, rcfg.image_height, 2 * rcfg.image_width, 3],
         "frames_uint8": frames.dtype == np.uint8,
         "coverage_in_range": bool(0.02 <= covered.mean() <= 0.9),
-        "raster_launches": raster_launches == (n // RENDER_BATCH) * len(cams),
+        "raster_launches": raster_launches == per_view,
+        "display_pack_launches": display_launches == per_view,
         "no_attention_in_render": render_attn == 0,
         "video_written": os.path.exists(video),
-    })
+    }
     emit("main_path_render", nvidia_smi=smi, frames=n, frame_batch=RENDER_BATCH, cameras=len(cams),
          uv=rcfg.uv_size, upscale=rcfg.upscale_size, image=[rcfg.image_height, rcfg.image_width],
          faces=int(renderer.model.assets.geo.faces.shape[0]), setup_s=render_setup_s,
          render_s=render_s, frames_per_s=n / render_s, video=os.path.relpath(video, ROOT), video_s=video_s,
-         kernel_launches=raster_launches, covered_share_mean=float(covered.mean()),
-         covered_share_min=float(covered.min()), covered_share_max=float(covered.max()),
-         frames_shape=list(frames.shape), checks=checks)
+         kernel_launches={raster.NAME: raster_launches, display_pack.NAME: display_launches},
+         covered_share_mean=float(covered.mean()), covered_share_min=float(covered.min()),
+         covered_share_max=float(covered.max()), frames_shape=list(frames.shape), checks=checks)
     if not all(checks.values()):
-        raise AssertionError(f"main path checks failed: {checks}")
-    return {flash_attn.NAME: attn_launches, raster.NAME: raster_launches}
+        raise AssertionError(f"main path (render) checks failed: {checks}")
+
+    # --- the display kernel against its plain version, on the render's own
+    # tensors (frame batch 8, 2048^2), and on a ragged case
+    m = renderer.model
+    with torch.no_grad():
+        codes = torch.from_numpy(np.ascontiguousarray(face[:RENDER_BATCH])).cuda()
+        motion = torch.from_numpy(np.ascontiguousarray(body[:RENDER_BATCH])).cuda()
+        decoded = m.decode_frame(motion, face_embs=codes, embs=m.template_body_embs().expand(RENDER_BATCH, -1),
+                                 encode=False)
+    args = _display_inputs(m, decoded, cams, RENDER_BATCH)
+    del decoded
+    summary = _display_compare(args)
+    emit("kernel_vs_plain", kernel=display_pack.NAME, case="render_b8", **summary)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ragged = (torch.randn((3, 3, 200, 2047), generator=g, device="cuda") * 0.3,
+              torch.rand((3, 1, 200, 2047), generator=g, device="cuda"),
+              torch.rand((3, 200, 2047), generator=g, device="cuda") * 200.0, 35.0)
+    row = _display_compare(ragged)
+    emit("kernel_vs_plain", kernel=display_pack.NAME, case="ragged_h200_w2047", **row)
+    for r in (summary, row):
+        if not r["ok"]:
+            raise AssertionError(f"{display_pack.NAME} disagrees with its plain version: {r}")
+    return {"face": face_attn, flash_attn.NAME: attn_launches, raster.NAME: raster_launches,
+            display_pack.NAME: display_launches, "display": summary}
 
 
 def _attn_inputs(g, B, H, Tq, Tk, Dh, masked):
@@ -907,6 +1164,7 @@ def main() -> None:
     attn = phase_kernels(args.seed)
     ras = phase_raster(args.seed)
     phase_slice_parity(args.seed)
+    phase_face_slice_parity(args.seed)
     phase_render_parity(args.seed)
     launches = phase_main_path(args.seed, smi)
     bwd = phase_train_kernels(args.seed)
@@ -915,14 +1173,15 @@ def main() -> None:
 
     import torch
 
-    from audio2photoreal_tpu_torch.kernels import flash_attn, raster
+    from audio2photoreal_tpu_torch.kernels import display_pack, flash_attn, raster
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    disp = launches["display"]
     print(json.dumps({"kernels": [
         {"name": flash_attn.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_fwd.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:124",
-         "launches": launches[flash_attn.NAME] + train_fwd,
-         "launches_by_path": {"generate": launches[flash_attn.NAME], "train": train_fwd},
+         "launches": launches[flash_attn.NAME] + launches["face"] + train_fwd,
+         "launches_by_path": {"generate": launches[flash_attn.NAME], "face": launches["face"], "train": train_fwd},
          "dropout": "replayed hash mask in the kernel (training); these numbers are at rate 0",
          **{k: attn[k] for k in keys}},
         {"name": flash_attn.BWD_NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_bwd.cu",
@@ -932,6 +1191,11 @@ def main() -> None:
         {"name": raster.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/raster.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas_raster.py:143", "launches": launches[raster.NAME],
          **{k: ras[k] for k in keys}},
+        {"name": display_pack.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/display_pack.cu",
+         "replaces": "audio2photoreal_tpu/ops/pallas/display_pack.py:56", "launches": launches[display_pack.NAME],
+         "launches_by_path": {"render": launches[display_pack.NAME]},
+         "shape": [disp[k] for k in ("B", "H", "W")], "exact_share": disp["exact_share"],
+         "no_tex_rec_ms": disp["no_tex_rec_ms"], "packed_ms": disp["packed_ms"], **{k: disp[k] for k in keys}},
     ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

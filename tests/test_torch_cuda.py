@@ -9,14 +9,16 @@ Tolerances with TF32 off: attention f32 1e-5 for unit-normal inputs, bf16
 2e-2; attention gradients f32 2e-5 and bf16 2e-2 of the largest plain
 element; the dropout mask exactly; the rasterizer's face ids and coverage
 exactly, depth / UV / barycentrics 1e-5; rendered uint8 frames within one
-count.
+count; the display kernel's tex_rec bit for bit and its 8-bit values exact
+on >= 99.99% of the channel texels and never more than one count off; a
+full-width face denoise step within 1e-3 of the CPU's.
 """
 
 import pytest
 import torch
 
 from audio2photoreal_tpu_torch.core.config import DenoiserConfig
-from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts, raster
+from audio2photoreal_tpu_torch.kernels import display_pack, flash_attn, launch_counts, raster
 from audio2photoreal_tpu_torch.kernels.flash_attn import (
     flash_attention,
     flash_attention_bwd_reference,
@@ -318,3 +320,79 @@ def test_body_renderer_card_matches_cpu(cuda):
     either = out["cuda"].any(-1) | out["cpu"].any(-1)
     assert (diff.max(-1) <= 1)[either].mean() >= 0.999
     assert (out["cuda"].any(-1) == out["cpu"].any(-1)).mean() >= 0.999
+
+
+# --------------------------------------------------------- display pass -- #
+
+
+def _display_inputs(cuda, B, H, W, seed=0):
+    """The render's ranges: a raw texture of N(0, 0.3), shadow in [0, 1], a
+    mean up to 200, std 35 (the JAX package's own test of its kernel)."""
+    g = torch.Generator(device=cuda).manual_seed(seed + H * W)
+    tex = torch.randn((B, 3, H, W), generator=g, device=cuda) * 0.3
+    shadow = torch.rand((B, 1, H, W), generator=g, device=cuda)
+    mean = torch.rand((3, H, W), generator=g, device=cuda) * 200.0
+    return tex, shadow, mean, 35.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W", [(2, 512, 512), (3, 200, 2048), (2, 61, 77), (8, 2048, 2048)])
+def test_display_kernel_matches_plain(cuda, B, H, W):
+    """Planar and packed modes; H 200 and 61 are no multiple of a 64-row
+    tile, and 61 x 77 texels take the kernel's one-texel path."""
+    args = _display_inputs(cuda, B, H, W)
+    want, want_rec = display_pack.finalize_display_reference(*args)
+    before = launch_counts[display_pack.NAME]
+    got, rec = display_pack.finalize_display(*args)
+    packed = display_pack.finalize_display_packed(*args)
+    assert launch_counts[display_pack.NAME] - before == 2
+    assert torch.equal(rec, want_rec)
+    diff = (got - want).abs()
+    assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.9999
+    assert packed.dtype == torch.int32 and packed.shape == (B, H, W)
+    assert torch.equal(packed, display_pack.pack_rgb8(got))
+    got2, none = display_pack.finalize_display(*args, with_tex_rec=False)
+    assert none is None and torch.equal(got2, got)
+
+
+@pytest.mark.cuda
+def test_display_kernel_rejects_what_it_does_not_take(cuda):
+    tex, shadow, mean, std = _display_inputs(cuda, 1, 8, 8)
+    with pytest.raises(ValueError, match="float32"):
+        display_pack.finalize_display(tex.double(), shadow.double(), mean.double(), std)
+    with pytest.raises(ValueError, match="shadow"):
+        display_pack.finalize_display(tex, shadow[:, :, :4], mean, std)
+    with pytest.raises(ValueError, match="different devices"):
+        display_pack.finalize_display(tex, shadow, mean.cpu(), std)
+
+
+@pytest.mark.cuda
+def test_face_denoiser_step_card_matches_cpu(cuda):
+    """The face model at full width (latent 512, 8 layers, 4 heads: Dh 128),
+    encode on 20 s of audio (lip regressor, rotary cond-encoder at 1998
+    tokens through the kernel) and one cached CFG step, card vs CPU."""
+    import copy
+
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn_cached
+
+    cfg = DenoiserConfig(data_format="face", nfeats=256, latent_dim=512, ff_size=1024, num_layers=8,
+                         num_heads=4, flash_attention=True)
+    cpu = FiLMDenoiser(cfg).eval()
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(1)
+    audio = rng.randn(1, cfg.max_seq_length * 1600, 2).astype(np.float32)
+    x = rng.randn(1, cfg.max_seq_length, cfg.nfeats).astype(np.float32)
+    out = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        before = launch_counts[flash_attn.NAME]
+        with torch.no_grad():
+            cond = model.encode_conditioning(torch.from_numpy(audio).to(dev))
+            fn = cfg_model_fn_cached(model, cond, 10.0)
+            out[dev] = fn(torch.from_numpy(x).to(dev), torch.tensor([999], device=dev)).cpu()
+        if dev == "cuda":  # the cond-encoder's 2 self-attentions, then 8 layers x 2
+            assert launch_counts[flash_attn.NAME] - before == cfg.cond_encoder_layers + 2 * cfg.num_layers
+    assert torch.isfinite(out["cuda"]).all()
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= 1e-3

@@ -46,13 +46,13 @@ def test_synthetic_person_files_are_byte_identical(tmp_path):
             assert fa.read() == fb.read(), n
 
 
-def test_test_split_chunks_match(tmp_path):
+def _split_chunks_match(tmp_path, data_format):
     make_synthetic_person(str(tmp_path), "P", num_scenes=7, frames_per_scene=50, seed=1)
     stats_path = str(tmp_path / "P" / "data_stats.npz")
     from audio2photoreal_tpu.data.stats import DataStats as JStats
     from audio2photoreal_tpu_torch.data.stats import DataStats
 
-    dc = dict(person="P", max_seq_length=24, min_seq_length=20)
+    dc = dict(person="P", max_seq_length=24, min_seq_length=20, data_format=data_format)
     ours = SocialDataset(load_local_data(str(tmp_path), "P"), DataStats.load(stats_path),
                          config.DataConfig(**dc), "test")
     theirs = JDataset(j_load(str(tmp_path), "P"), JStats.load(stats_path),
@@ -61,8 +61,18 @@ def test_test_split_chunks_match(tmp_path):
     for i in (0, 7):
         a, b = ours.get_chunk(i), theirs.get_chunk(i)
         assert a.keys() == b.keys()
+        # a face chunk carries no keyframes: its codes are the motion
+        assert ("keyframes" in a) == (data_format == "pose")
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_test_split_chunks_match(tmp_path):
+    _split_chunks_match(tmp_path, "pose")
+
+
+def test_face_split_chunks_match(tmp_path):
+    _split_chunks_match(tmp_path, "face")
 
 
 @pytest.mark.parametrize("spacing", ["ddim5", "ddim50", "10,15,20", ""])

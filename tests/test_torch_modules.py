@@ -246,9 +246,13 @@ def test_denoise_matches_jax(denoisers, keep):
 
 
 def test_face_branch_and_bf16_raise():
-    with pytest.raises(NotImplementedError, match="face branch"):
-        FiLMDenoiser(DenoiserConfig(**{**CFG, "data_format": "face"}))
-    with pytest.raises(NotImplementedError):
+    """The face denoiser builds (lip regressor and rotary cond-encoder,
+    frozen lip model, no pose-only modules); bf16 still raises."""
+    face = FiLMDenoiser(DenoiserConfig(**{**CFG, "data_format": "face", "nfeats": 256}))
+    assert face.cond_projection.in_features == 1024 + 1014 and len(face.cond_encoder) == 2
+    assert not any(p.requires_grad for p in face.lip_model.parameters())
+    assert not any(n.startswith(("null_pose_embed", "post_pose_layers", "frame_")) for n in face.state_dict())
+    with pytest.raises(NotImplementedError, match="bf16"):
         FiLMDenoiser(DenoiserConfig(**{**CFG, "dtype": "bfloat16"}))
 
 

@@ -9,12 +9,14 @@ up on one batch, then measures on random poses and face codes:
 1. wall ms per frame batch of ``render_sequence_multicam`` (host clock
    around work that ends in a synchronize), and frames per second;
 2. wall ms per stage, each synchronized: decode_frame, and per camera
-   decoder_view, forward_tex, display_texture, projection + raster +
-   texture sample;
+   decoder_view, upscale_tex, the display pass (x std + mean, x shadow,
+   display transform) through the display_pack kernel and, beside it on the
+   same inputs, through its plain version (the composed chain), the
+   display-space seam pass, projection + raster + texture sample;
 3. torch.profiler over ``--batches`` batches: device time by kernel (top 25),
    device busy ms, launches, the idle share against the unprofiled wall
-   time, and the raster wrapper's two kernels' device ms per launch (the
-   per-face setup and the tile raster).
+   time, and the device ms per launch of the raster wrapper's two kernels
+   (the per-face setup and the tile raster) and of the display kernel.
 Prints one JSON object and writes it to ``--out``.  TF32 is off, as in
 chip_smoke.py.
 """
@@ -59,6 +61,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     import chip_smoke
     from audio2photoreal_tpu_torch.apps.render_pipeline import BodyRenderer
+    from audio2photoreal_tpu_torch.kernels import display_pack
     from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets, synthetic_rig
     from audio2photoreal_tpu_torch.render.geometry import project_points
     from audio2photoreal_tpu_torch.render.mesh_vae import RendererConfig
@@ -90,10 +93,14 @@ def main() -> None:
             campos, K, Rt = (r._tensor(getattr(c, k), fb) for k in ("campos", "K", "Rt"))
             view, stages[f"{name}.decoder_view"] = _sync_ms(
                 lambda: m.decoder_view(dec["geom"], dec["tex_mean_rec"], campos, m.assets.geo))
-            tex, stages[f"{name}.forward_tex"] = _sync_ms(lambda: m.forward_tex(
-                dec["tex_mean_rec"], view["tex_view_rec"], None, final_seam=False,
-                shadow_seamed=dec["shadow_seamed"]))
-            q, stages[f"{name}.display_texture"] = _sync_ms(lambda: m.display_texture(tex))
+            tex, stages[f"{name}.upscale_tex"] = _sync_ms(
+                lambda: m.upscale_tex(dec["tex_mean_rec"], view["tex_view_rec"]))
+            a = m.assets
+            fin = (tex, dec["shadow_seamed"], a.tex_mean, a.tex_std)
+            (q, _), stages[f"{name}.display_pass_kernel"] = _sync_ms(lambda: display_pack.finalize_display(*fin))
+            _, stages[f"{name}.display_pass_plain"] = _sync_ms(
+                lambda: display_pack.finalize_display_reference(*fin))
+            q, stages[f"{name}.display_seam"] = _sync_ms(lambda: a.seam_2k.apply_display(q, 2))
 
             def raster_and_sample():
                 pix, depth = project_points(dec["geom"], K, Rt)
@@ -117,6 +124,7 @@ def main() -> None:
         return sum(e.self_device_time_total for e in es) / 1e3 / max(sum(e.count for e in es), 1)
 
     raster_ms, setup_ms = per_launch_ms("raster_kernel"), per_launch_ms("raster_setup_kernel")
+    display_ms = per_launch_ms("display_pack_kernel")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     out = {
@@ -125,6 +133,7 @@ def main() -> None:
         "stage_ms": stages, "device_busy_ms_per_batch": busy_us / 1e3 / args.batches,
         "idle_share": 1.0 - (busy_us / 1e3) / wall_ms, "device_launches_per_batch": launches / args.batches,
         "raster_kernel_device_ms_per_launch": raster_ms, "raster_setup_device_ms_per_launch": setup_ms,
+        "display_pack_device_ms_per_launch": display_ms,
         "top_device_kernels": top,
     }
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
