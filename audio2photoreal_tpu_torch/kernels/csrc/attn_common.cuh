@@ -8,11 +8,34 @@
 // element (b, h, i, j) reads hash(seed, (b*H + h)*nj + i / bq, i % bq, j)
 // whatever tile size these kernels use.  It is computed per element in both
 // passes and never stored.
+//
+// The products run on the tensor cores with mma.sync m16n8k8 TF32.  A TF32
+// operand keeps 10 of f32's 23 mantissa bits, so an f32 operand x is split
+// as big = tf32_rna(x), small = tf32_rna(x - big), and a product is
+// accumulated in f32 as small*big + big*small + big*big, the small terms
+// first (3xTF32, CUTLASS's OpMultiplyAddFastF32): about f32's accuracy at a
+// third of the TF32 rate.  A bf16 operand is exact in TF32 (8 mantissa bits
+// of 10), so bf16 inputs take the big*big product alone.
+//
+// Fragment layout of m16n8k8 (PTX ISA, per lane: g = lane / 4, t = lane % 4):
+// A [16 x 8]: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
+// B [8 x 8]:  b0 (k t, n g), b1 (k t+4, n g);
+// C [16 x 8]: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
+// A product whose A operand is a C-layout accumulator (P.V, dS.K, P^T.dO,
+// dS^T.Q) takes the eight k of a step in the order 0,2,4,6,1,3,5,7: a0 = c0,
+// a1 = c2, a2 = c1, a3 = c3, and its B operand reads rows 2t and 2t+1 to
+// match.  The sum over k does not depend on that order, and no shuffle is
+// needed.  Shared-memory rows are padded by 16 bytes, so with f32 every
+// fragment load (rows g and columns t, or rows 2t / 2t+1 and columns g)
+// touches 32 distinct banks.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace attn {
 
@@ -55,6 +78,203 @@ __device__ __forceinline__ float mask_mult(const Dropout& d, uint32_t row_term, 
   h = (h ^ (h >> 17)) * 668265263u;
   h ^= h >> 16;
   return h >= d.threshold ? d.mult : 0.f;
+}
+
+// e^x as 2^(x log2 e) on the special-function unit: one FMUL and one
+// MUFU.EX2 against expf's eight instructions (1-4% of the kernels' time on
+// the H100, errors unchanged).  ex2.approx's relative error is about 2^-22;
+// the product's rounding adds |x| 2^-24, which grows only where e^x is
+// already far below the row's largest term.  -inf gives 0.
+__device__ __forceinline__ float exp_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// A [B, H, T, Dh] operand as a strided view: element strides of the batch,
+// head and time axes; the Dh axis is contiguous and every row starts on 16
+// bytes (the wrappers check both).
+template <typename T>
+struct Mat {
+  T* p;
+  long long sb, sh, st;
+  __device__ __forceinline__ T* head(int b, int h) const { return p + b * sb + h * sh; }
+};
+
+template <typename T>
+inline Mat<T> make_mat(void* p, const long long* s) {
+  return Mat<T>{static_cast<T*>(p), s[0], s[1], s[2]};
+}
+template <typename T>
+inline Mat<const T> make_cmat(const void* p, const long long* s) {
+  return Mat<const T>{static_cast<const T*>(p), s[0], s[1], s[2]};
+}
+
+// ------------------------------------------------------------ cp.async --
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying rows r0 .. r0+ROWS-1 of one head's [T_, D] rows (row stride
+// st elements) into s[ROWS][LDS]; rows at or past T_ are zero-filled.
+template <typename T, int D, int LDS, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(T* s, const T* x, long long st, int r0, int T_) {
+  constexpr int CHUNK = 16 / (int)sizeof(T);
+  constexpr int PER_ROW = D / CHUNK;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
+    const int r = i / PER_ROW, c = (i % PER_ROW) * CHUNK, g = r0 + r;
+    const bool ok = g < T_;
+    cp_async16(s + r * LDS + c, ok ? x + (long long)g * st + c : x, ok);
+  }
+}
+
+// ------------------------------------------------- 3xTF32 on mma.sync --
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// TF32 rounding on the bits, as CUTLASS does it: adding half a TF32 ulp
+// (bit 12) and dropping the 13 low bits rounds to nearest, ties away from
+// zero (cvt.rna.tf32.f32's rule) for every finite x, in two integer
+// instructions; cvt.rna compiles to four with its checks for inf and NaN,
+// and the splits are most of these kernels' instructions.  The operands
+// here are finite (inputs, probabilities, dS).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi = tf32_rna(x); lo = x - hi is exact in f32, and the
+// tensor cores read a TF32 operand's top 19 bits and drop the 13 low ones,
+// so adding half an ulp to lo's bits first makes that drop round lo to
+// nearest: lo = tf32_rna(x - hi) without the mask.
+template <bool X3>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  if (X3) lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b: 3xTF32 (small terms first) or, for bf16 inputs, one TF32 product.
+template <bool X3>
+__device__ __forceinline__ void mma(float (&c)[4], const FragA& a, const FragB& b) {
+  if (X3) {
+    mma_tf32(c, a.lo, b.hi);
+    mma_tf32(c, a.hi, b.lo);
+  }
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// c += a b into a running sum over many k-steps (O over the keys, dQ, dK,
+// dV).  The tensor cores add into their f32 accumulator with truncation
+// (round toward zero), so a chain of mma over thousands of keys drifts by up
+// to ~2e-5 of the sum (an f32 dQ at Tk 2000 missed its 2e-5 bar that way).
+// For f32, each k-step's three products go into a zeroed accumulator, which
+// is added to c with round-to-nearest FADDs; a chain of mma then spans one
+// k-step.  bf16's bars (2e-2) take the chain as it is.
+template <bool X3>
+__device__ __forceinline__ void mma_sum(float (&c)[4], const FragA& a, const FragB& b) {
+  if (X3) {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    mma<X3>(d, a, b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] += d[i];
+  } else {
+    mma<X3>(c, a, b);
+  }
+}
+
+template <bool X3>
+__device__ __forceinline__ void split_a(FragA& f, float x0, float x1, float x2, float x3) {
+  split<X3>(x0, f.hi[0], f.lo[0]);
+  split<X3>(x1, f.hi[1], f.lo[1]);
+  split<X3>(x2, f.hi[2], f.lo[2]);
+  split<X3>(x3, f.hi[3], f.lo[3]);
+}
+
+// A = rows r0..r0+15, columns c0..c0+7 of a row-major shared tile.
+template <bool X3, int LDS, typename T>
+__device__ __forceinline__ void load_a(FragA& f, const T* s, int r0, int c0, int g, int t) {
+  const T* p = s + (r0 + g) * LDS + c0 + t;
+  split_a<X3>(f, to_float(p[0]), to_float(p[8 * LDS]), to_float(p[4]), to_float(p[8 * LDS + 4]));
+}
+
+// A from a C-layout accumulator (its 8 columns are the step's k, permuted).
+template <bool X3>
+__device__ __forceinline__ void a_from_c(FragA& f, const float (&c)[4]) {
+  split_a<X3>(f, c[0], c[2], c[1], c[3]);
+}
+
+// B[k][n] = s[n0 + n][c0 + k]: the tile holds n as rows (K in Q K^T).
+template <bool X3, int LDS, typename T>
+__device__ __forceinline__ void load_b_nk(FragB& f, const T* s, int n0, int c0, int g, int t) {
+  const T* p = s + (n0 + g) * LDS + c0 + t;
+  split<X3>(to_float(p[0]), f.hi[0], f.lo[0]);
+  split<X3>(to_float(p[4]), f.hi[1], f.lo[1]);
+}
+
+// B[k][n] = s[k0 + k][n0 + n] with k permuted as a_from_c permutes it: the
+// tile holds k as rows (V in P V).
+template <bool X3, int LDS, typename T>
+__device__ __forceinline__ void load_b_kn(FragB& f, const T* s, int k0, int n0, int g, int t) {
+  const T* p = s + (k0 + 2 * t) * LDS + n0 + g;
+  split<X3>(to_float(p[0]), f.hi[0], f.lo[0]);
+  split<X3>(to_float(p[LDS]), f.hi[1], f.lo[1]);
+}
+
+// ---------------------------------------------------------- launching --
+
+// Per-instantiation launch facts, queried once per device: the opt-in above
+// the 48 KB of dynamic shared memory (a property of the kernel on the
+// current device), and how many blocks fit on an SM.
+struct Prepared {
+  cudaError_t err;
+  int blocks_per_sm;
+  int sms;
+};
+
+constexpr int MAX_DEVICES = 64;
+
+// One per instantiation, a function-local static of its launch code.
+struct PreparedCache {
+  std::once_flag once[MAX_DEVICES];
+  Prepared on[MAX_DEVICES];
+};
+
+template <typename Kernel>
+Prepared prepare(PreparedCache& cache, Kernel kernel, int threads, size_t smem) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return Prepared{err, 0, 0};
+  if (dev >= MAX_DEVICES) return Prepared{cudaErrorInvalidDevice, 0, 0};
+  std::call_once(cache.once[dev], [&] {
+    Prepared& r = cache.on[dev];
+    r = Prepared{cudaSuccess, 0, 0};
+    r.err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (r.err == cudaSuccess)
+      r.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&r.blocks_per_sm, kernel, threads, smem);
+    if (r.err == cudaSuccess) r.err = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount, dev);
+  });
+  return cache.on[dev];
 }
 
 }  // namespace attn

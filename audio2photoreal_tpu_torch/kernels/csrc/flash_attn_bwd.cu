@@ -1,4 +1,5 @@
-// Attention backward for Hopper (sm_90a), with the replayed dropout mask.
+// Attention backward for Hopper (sm_90a) on the tensor cores, with the
+// replayed dropout mask.
 //
 // Replaces the Pallas TPU kernel audio2photoreal_tpu/ops/pallas/flash.py
 // (_attn_bwd_kernel, reached from _flash_bwd and the custom VJP of
@@ -15,22 +16,41 @@
 //   1. delta: D[i] = sum_d dO[i,d] O[i,d], one warp per row.  This is the
 //      TPU kernel's sum_j P o dP (flash.py:200): O is the dropped output, so
 //      sum_j P_ij M_ij (dO_i . V_j) = dO_i . O_i.
-//   2. dK/dV: one block per (batch*head, 64-key tile).  It loops over every
-//      64-row q tile, recomputes P = exp(S - lse) with the forward's scale,
-//      kv_valid bias and causal rule, and accumulates on chip
-//      dV += (P o M)^T dO and dK += scale dS^T Q, dS = P o (dO V^T o M - D).
-//   3. dQ: one block per (batch*head, 64-row q tile); loops over the key
-//      tiles and accumulates dQ += scale dS K.
+//   2. dK/dV and dQ partials: one block per (batch*head, key block), 16 keys
+//      per warp.  It loops over the q tiles and works on the transposed
+//      tile: S^T = K Q^T and dP^T = V dO^T, then P^T = exp(S^T - lse) with
+//      the forward's scale, kv_valid bias and causal rule, and accumulates in
+//      registers dV += (P o M)^T dO and dK += dS^T Q, dS = P o (dP o M - D).
+//      With the keys as rows, each of those products' A operand is a K/V
+//      tile or an accumulator already in registers.  The block then writes
+//      dS^T to shared memory and forms this key block's share of dQ, dS K,
+//      for the q tile (the warps split its rows and columns), into a
+//      [key blocks, B, H, Tq, Dh] f32 scratch.
+//   3. dQ: scale times the sum of the key blocks' partials, in key-block
+//      order, one thread per 4 elements.
 //
-// The loops run in a fixed order, so two runs give bit-identical gradients.
-// S and dP are recomputed in both kernels 2 and 3: 7 tile products per
-// (q tile, key tile) against the forward's 2.  What bounds it on the card:
-// 10*B*H*Tq*Tk*Dh flops (flash.py:266) against a few reads of q, k, v, dO,
-// so arithmetic; this first version runs f32 FMAs on the CUDA cores (67
-// TFLOP/s peak), like the forward, and keeps f32 accuracy.  Tensor cores,
-// cp.async and TMA are later work.  Shared memory holds Q, dO, K, V tiles
-// (rows padded by one float) and the [64, 64] P o M and dS tiles: 100 KB at
-// Dh 64 and 166 KB at Dh 128, above the 48 KB default, so each kernel opts in.
+// S, dP and P are computed once per (q tile, key tile): 5 tile products, the
+// minimum, against 7 when a separate dQ kernel recomputed them.  The
+// scratch costs a write and a read of 4 * ceil(Tk / block keys) * B*H*Tq*Dh
+// bytes (314 MB at the trainer's B64 Tk 2000 Dh 64, 0.19 ms of HBM time).
+// The loops and the partials' sum run in a fixed order and nothing is
+// accumulated by atomics, so two runs give bit-identical gradients.
+//
+// What bounds it on the card: 10*B*H*Tq*Tk*Dh flops (flash.py:266) against
+// a few reads of q, k, v, dO and the scratch: arithmetic.  Every product
+// runs on the tensor cores as mma.sync m16n8k8 TF32, 3xTF32 for f32 inputs
+// (f32 accuracy) and one TF32 product for bf16 inputs, which TF32 holds
+// exactly (attn_common.cuh; why not wgmma: flash_attn_fwd.cu).  The
+// streamed Q and dO tiles come through a two-stage cp.async ring, so the
+// next tile's copy overlaps this tile's products; dS^T takes the current
+// stage's buffer once its products are done.  At Dh 64 a block is 4 warps,
+// 64 keys against 32-row q tiles (70 KB of f32, registers capped at 168:
+// three blocks per SM); at Dh 128 it is 8 warps, 128 keys against 16-row q
+// tiles (169 KB: one block of 8 warps per SM).  The fastest of the variants
+// tools/torch_attn_tune.py measured on the H100.
+//
+// q, k, v, the forward's output and dO are strided [B, H, T, Dh] views (Dh
+// contiguous); the gradients are written through their own strides.
 //
 // Plain C interface for ctypes; the caller owns every buffer and the stream.
 
@@ -43,107 +63,68 @@
 namespace {
 
 using attn::Dropout;
+using attn::FragA;
+using attn::FragB;
 using attn::from_float;
+using attn::Mat;
 using attn::NEG_BIAS;
 using attn::to_float;
 
-constexpr int BQ = 64;          // q rows per tile
-constexpr int BK = 64;          // keys per tile
-constexpr int THREADS = 128;    // 16 row groups x 8 column lanes
-constexpr int LANES = 8;        // threads that share one row group
-constexpr int ROWS = 4;         // rows (q rows, or keys in the dK/dV sums) per thread
-constexpr int KCOLS = BK / LANES;  // key columns per thread in the S / dP tile
-constexpr int LDP = BK + 1;
 constexpr int DELTA_THREADS = 256;
 
-template <int D>
-constexpr int smem_floats() {
-  return 4 * 64 * (D + 1) + 2 * BQ * LDP + 2 * BQ;
-}
-
-// Stage rows r0 .. r0+63 of a [T, D] matrix into sX[64][D+1] as f32, times
-// mul; rows past T are zero.
 template <typename T, int D>
-__device__ __forceinline__ void stage(float* sX, const T* x, int r0, int T_, float mul) {
-  constexpr int LD = D + 1;
-  for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
-    const int r = i / D, c = i % D, g = r0 + r;
-    sX[r * LD + c] = g < T_ ? to_float(x[(size_t)g * D + c]) * mul : 0.f;
-  }
-}
+struct Cfg {
+  static constexpr bool X3 = sizeof(T) == 4;  // f32: 3xTF32; bf16: one TF32 product
+  static constexpr int WARPS = D == 128 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  // occupancy and streamed tile: the best of the variants timed (PERF.md, tools/torch_attn_tune.py)
+  static constexpr int MIN_BLOCKS = D == 128 ? 1 : 3;  // resident blocks per SM the registers must allow
+  static constexpr int RES = 16 * WARPS;               // resident rows: keys (kernel 2), q rows (3)
+  static constexpr int STR = D == 128 ? 16 : 32;       // rows of a streamed tile
+  static constexpr int LDS = D + 16 / (int)sizeof(T);
+  static constexpr size_t RES_BYTES = sizeof(T) * 2 * RES * LDS;  // K and V, or Q and dO
+  static constexpr size_t STAGE_BYTES = sizeof(T) * 2 * STR * LDS;
+  static constexpr size_t VEC_BYTES = sizeof(float) * 3 * STR;    // lse, delta, row term
+  // dS^T [RES keys][LDP] f32: in the current stage's Q/dO buffer once its
+  // products are done, or (bf16 at Dh 128, whose stage is smaller) its own
+  static constexpr int LDP = STR + 4;
+  static constexpr size_t DS_BYTES = sizeof(float) * RES * LDP;
+  static constexpr bool DS_OWN = DS_BYTES > STAGE_BYTES;
+  static constexpr size_t DKDV_SMEM = RES_BYTES + 2 * (STAGE_BYTES + VEC_BYTES) + (DS_OWN ? DS_BYTES : 0);
+  // the dQ partial of a q tile: STR / 16 m-tiles x D / 8 n-tiles shared by the warps
+  static constexpr int MQ = STR / 16, NDW = (D / 8) * MQ / WARPS;
+  static_assert(WARPS % MQ == 0 && NDW * WARPS == (D / 8) * MQ, "dQ partial tiles share out");
+};
 
-// The S and dP tile of a thread: rows row0 .. row0+3 of the q tile at q0, keys
-// lane + 8j of the key tile at k0.  Writes P o M and dS into sP / sdS
-// ([BQ][LDP], q-major).  sQ holds q * scale, sL the q rows' log-sum-exp, sD
-// their delta; both are 0 for rows past Tq.
-template <int D>
-__device__ __forceinline__ void probs_and_ds(const float* sQ, const float* sdO, const float* sK,
-                                             const float* sV, const float* sL, const float* sD,
-                                             float* sP, float* sdS, const float* valid, int bh,
-                                             int q0, int k0, int Tq, int Tk, int causal,
-                                             const Dropout& drop) {
-  constexpr int LD = D + 1;
-  const int lane = threadIdx.x % LANES;
-  const int row0 = (threadIdx.x / LANES) * ROWS;
-  float s[ROWS][KCOLS], dp[ROWS][KCOLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-    for (int j = 0; j < KCOLS; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[ROWS], gv[ROWS], kv[KCOLS], vv[KCOLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      qv[i] = sQ[(row0 + i) * LD + d];
-      gv[i] = sdO[(row0 + i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < KCOLS; ++j) {
-      kv[j] = sK[(lane + LANES * j) * LD + d];
-      vv[j] = sV[(lane + LANES * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < KCOLS; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-      }
-  }
-  const int causal_off = Tk - Tq;
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int gq = q0 + row0 + i;
-    const bool row_exists = gq < Tq;
-    const uint32_t row_term = drop.on ? attn::mask_row_term(drop, bh, gq) : 0u;
-    const float lse = sL[row0 + i], delta = sD[row0 + i];
-#pragma unroll
-    for (int j = 0; j < KCOLS; ++j) {
-      const int gk = k0 + lane + LANES * j;
-      float p = 0.f;
-      if (row_exists && gk < Tk) {
-        // the forward's logit, bit for bit: same products, same order
-        float x = s[i][j] + ((valid != nullptr && !(valid[gk] > 0.f)) ? NEG_BIAS : 0.f);
-        if (causal && gk > gq + causal_off) x = NEG_BIAS;
-        p = expf(x - lse);
-      }
-      const float m = drop.on ? attn::mask_mult(drop, row_term, gk) : 1.f;
-      sP[(row0 + i) * LDP + lane + LANES * j] = p * m;
-      sdS[(row0 + i) * LDP + lane + LANES * j] = p * (dp[i][j] * m - delta);
-    }
-  }
+template <typename T>
+struct BwdArgs {
+  Mat<const T> q, k, v, dout;
+  Mat<T> dq, dk, dv;
+  const float* kv_valid;  // [B, Tk] or null
+  const float* lse;       // [B, H, Tq]
+  const float* delta;     // [B, H, Tq]
+  float* dq_part;         // [ceil(Tk / block keys), B*H, Tq, Dh]
+  int H, Tq, Tk, causal;
+  float scale;
+  Dropout drop;
+};
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  p[0] = from_float<T>(a);
+  p[1] = from_float<T>(b);
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DELTA_THREADS)
-attn_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-                      float* __restrict__ delta, int rows) {
+attn_bwd_delta_kernel(Mat<const T> out, Mat<const T> dout, float* __restrict__ delta, int H,
+                      int Tq, int rows) {
   const int row = (int)((blockIdx.x * (size_t)DELTA_THREADS + threadIdx.x) / 32);
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;  // whole warps: every lane of a warp has the same row
-  const T* o = out + (size_t)row * D;
-  const T* g = dout + (size_t)row * D;
+  const int bh = row / Tq, i = row % Tq, b = bh / H, h = bh % H;
+  const T* o = out.head(b, h) + (long long)i * out.st;
+  const T* g = dout.head(b, h) + (long long)i * dout.st;
   float acc = 0.f;
 #pragma unroll
   for (int c = lane; c < D; c += 32) acc = fmaf(to_float(o[c]), to_float(g[c]), acc);
@@ -153,227 +134,320 @@ attn_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const float* __restrict__ kv_valid, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int H, int Tq, int Tk, int causal,
-                     float scale, Dropout drop) {
-  constexpr int LD = D + 1;
-  constexpr int OCOLS = D / LANES;
-  extern __shared__ float smem[];
-  float* sK = smem;             // [BK][LD]
-  float* sV = sK + BK * LD;     // [BK][LD]
-  float* sQ = sV + BK * LD;     // [BQ][LD], scale folded in
-  float* sdO = sQ + BQ * LD;    // [BQ][LD]
-  float* sP = sdO + BQ * LD;    // [BQ][LDP]  P o M
-  float* sdS = sP + BQ * LDP;   // [BQ][LDP]  dS
-  float* sL = sdS + BQ * LDP;   // [BQ]
-  float* sD = sL + BQ;          // [BQ]
+__global__ void __launch_bounds__(Cfg<T, D>::THREADS, Cfg<T, D>::MIN_BLOCKS)
+attn_bwd_dkdv_kernel(BwdArgs<T> a) {
+  using C = Cfg<T, D>;
+  constexpr bool X3 = C::X3;
+  constexpr int THREADS = C::THREADS, KB = C::RES, QB = C::STR, LDS = C::LDS, LDP = C::LDP;
+  constexpr int NQ = QB / 8, ND = D / 8, NDW = C::NDW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sK = reinterpret_cast<T*>(smem);  // [KB][LDS]
+  T* sV = sK + KB * LDS;                // [KB][LDS]
+  T* sRing = sV + KB * LDS;             // stage s: Q at 2s, dO at 2s + 1, [QB][LDS] each
+  float* sVec = reinterpret_cast<float*>(smem + C::RES_BYTES + 2 * C::STAGE_BYTES);  // stage s: [3][QB]
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int k0 = blockIdx.x * BK;
-  const int lane = threadIdx.x % LANES;
-  const int krow0 = (threadIdx.x / LANES) * ROWS;  // this thread's keys in the sums
-  const T* qb = q + (size_t)bh * Tq * D;
-  const T* ob = dout + (size_t)bh * Tq * D;
-  const float* valid = kv_valid ? kv_valid + (size_t)b * Tk : nullptr;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.x * KB;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = warp * 16;  // this warp's first key in the tile
+  const T* qh = a.q.head(b, h);
+  const T* oh = a.dout.head(b, h);
+  const float* valid = a.kv_valid ? a.kv_valid + (size_t)b * a.Tk : nullptr;
+  const int causal_off = a.Tk - a.Tq;
+  const int n_qt = (a.Tq + QB - 1) / QB;
 
-  stage<T, D>(sK, k + (size_t)bh * Tk * D, k0, Tk, 1.f);
-  stage<T, D>(sV, v + (size_t)bh * Tk * D, k0, Tk, 1.f);
+  auto load_q = [&](int qt, int stage) {
+    T* sQ = sRing + (2 * stage) * QB * LDS;
+    attn::load_tile<T, D, LDS, QB, THREADS>(sQ, qh, a.q.st, qt * QB, a.Tq);
+    attn::load_tile<T, D, LDS, QB, THREADS>(sQ + QB * LDS, oh, a.dout.st, qt * QB, a.Tq);
+    float* v = sVec + stage * 3 * QB;
+    for (int i = threadIdx.x; i < QB; i += THREADS) {
+      const int gq = qt * QB + i;
+      const bool ok = gq < a.Tq;
+      v[i] = ok ? a.lse[(size_t)bh * a.Tq + gq] : 0.f;
+      v[QB + i] = ok ? a.delta[(size_t)bh * a.Tq + gq] : 0.f;
+      reinterpret_cast<uint32_t*>(v)[2 * QB + i] =
+          (ok && a.drop.on) ? attn::mask_row_term(a.drop, bh, gq) : 0u;
+    }
+  };
+  attn::load_tile<T, D, LDS, KB, THREADS>(sK, a.k.head(b, h), a.k.st, k0, a.Tk);
+  attn::load_tile<T, D, LDS, KB, THREADS>(sV, a.v.head(b, h), a.v.st, k0, a.Tk);
+  load_q(0, 0);
+  attn::cp_async_commit();
 
-  float dk_acc[ROWS][OCOLS], dv_acc[ROWS][OCOLS];
+  // this thread's keys: k0 + wr + g + 8r
+  bool key_ok[2];
+  float key_bias[2];
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int gk = k0 + wr + g + 8 * r;
+    key_ok[r] = gk < a.Tk;
+    key_bias[r] = (valid != nullptr && key_ok[r] && !(valid[gk] > 0.f)) ? NEG_BIAS : 0.f;
+  }
+  float dk[ND][4], dv[ND][4];
 #pragma unroll
-    for (int c = 0; c < OCOLS; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
 
-  for (int q0 = 0; q0 < Tq; q0 += BQ) {
-    __syncthreads();  // the previous tile's reads are done (and sK/sV are staged)
-    stage<T, D>(sQ, qb, q0, Tq, scale);
-    stage<T, D>(sdO, ob, q0, Tq, 1.f);
-    for (int r = threadIdx.x; r < BQ; r += THREADS) {
-      const int gq = q0 + r;
-      sL[r] = gq < Tq ? lse[(size_t)bh * Tq + gq] : 0.f;
-      sD[r] = gq < Tq ? delta[(size_t)bh * Tq + gq] : 0.f;
+  for (int qt = 0; qt < n_qt; ++qt) {
+    const int stage = qt & 1;
+    if (qt + 1 < n_qt) {
+      load_q(qt + 1, stage ^ 1);
+      attn::cp_async_commit();
+      attn::cp_async_wait<1>();
+    } else {
+      attn::cp_async_wait<0>();
     }
     __syncthreads();
-    probs_and_ds<D>(sQ, sdO, sK, sV, sL, sD, sP, sdS, valid, bh, q0, k0, Tq, Tk, causal, drop);
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      float pv[ROWS], dsv[ROWS];
+    const T* sQ = sRing + (2 * stage) * QB * LDS;
+    const T* sdO = sQ + QB * LDS;
+    const float* sL = sVec + stage * 3 * QB;
+    const float* sD = sL + QB;
+    const uint32_t* sRT = reinterpret_cast<const uint32_t*>(sL + 2 * QB);
+
+    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys and QB q rows
+    float st[NQ][4], dpt[NQ][4];
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        pv[i] = sP[r * LDP + krow0 + i];
-        dsv[i] = sdS[r * LDP + krow0 + i];
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < ND; ++ks) {
+      FragA fk, fv;
+      attn::load_a<X3, LDS>(fk, sK, wr, ks * 8, g, t);
+      attn::load_a<X3, LDS>(fv, sV, wr, ks * 8, g, t);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        FragB fq, fo;
+        attn::load_b_nk<X3, LDS>(fq, sQ, j * 8, ks * 8, g, t);
+        attn::mma<X3>(st[j], fk, fq);
+        attn::load_b_nk<X3, LDS>(fo, sdO, j * 8, ks * 8, g, t);
+        attn::mma<X3>(dpt[j], fv, fo);
       }
+    }
+
+    // element (r, e) of n-tile j: key k0 + wr + g + 8r, q row qt*QB + 8j + 2t + e
 #pragma unroll
-      for (int c = 0; c < OCOLS; ++c) {
-        const float g = sdO[r * LD + lane + LANES * c];
-        const float x = sQ[r * LD + lane + LANES * c];  // q * scale: dK takes the scale here
+    for (int j = 0; j < NQ; ++j)
 #pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-          dv_acc[i][c] = fmaf(pv[i], g, dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(dsv[i], x, dk_acc[i][c]);
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e, gq = qt * QB + c;
+        const bool q_ok = gq < a.Tq;
+        const float lse = sL[c], delta = sD[c];
+        const uint32_t rt = sRT[c];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int gk = k0 + wr + g + 8 * r;
+          float p = 0.f;
+          if (q_ok && key_ok[r]) {
+            float x = st[j][2 * r + e] * a.scale + key_bias[r];
+            if (a.causal && gk > gq + causal_off) x = NEG_BIAS;
+            p = attn::exp_fast(x - lse);
+          }
+          const float mm = a.drop.on ? attn::mask_mult(a.drop, rt, gk) : 1.f;
+          st[j][2 * r + e] = p * mm;                              // (P o M)^T
+          dpt[j][2 * r + e] = p * (dpt[j][2 * r + e] * mm - delta);  // dS^T
         }
       }
+
+    // dV += (P o M)^T dO, dK += dS^T Q (the scale once, at the end)
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      FragA fp, fs;
+      attn::a_from_c<X3>(fp, st[kk]);
+      attn::a_from_c<X3>(fs, dpt[kk]);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        FragB fo, fq;
+        attn::load_b_kn<X3, LDS>(fo, sdO, kk * 8, n * 8, g, t);
+        attn::mma_sum<X3>(dv[n], fp, fo);
+        attn::load_b_kn<X3, LDS>(fq, sQ, kk * 8, n * 8, g, t);
+        attn::mma_sum<X3>(dk[n], fs, fq);
+      }
     }
+    __syncthreads();  // every warp is done with this stage's Q and dO
+
+    // dS^T into the stage's buffer: key rows, q columns
+    float* sdS = C::DS_OWN ? reinterpret_cast<float*>(smem + C::DKDV_SMEM - C::DS_BYTES)
+                           : reinterpret_cast<float*>(sRing + (2 * stage) * QB * LDS);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(sdS + (wr + g + 8 * r) * LDP + 8 * j + 2 * t) =
+            make_float2(dpt[j][2 * r], dpt[j][2 * r + 1]);
+    __syncthreads();
+
+    // this key block's dQ partial for the q tile, dS K over the block's KB
+    // keys: warp w takes q m-tile w % MQ and n-tiles NDW (w / MQ) .. +NDW
+    {
+      const int mq = (warp % C::MQ) * 16, n0 = (warp / C::MQ) * NDW;
+      float acc[NDW][4];
+#pragma unroll
+      for (int n = 0; n < NDW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KB / 8; ++ks) {
+        // A[q][key] = dS^T[key][q], the keys of the step in a_from_c's order
+        const float* p = sdS + (ks * 8 + 2 * t) * LDP + mq + g;
+        FragA fs;
+        attn::split_a<X3>(fs, p[0], p[8], p[LDP], p[LDP + 8]);
+#pragma unroll
+        for (int n = 0; n < NDW; ++n) {
+          FragB fk;
+          attn::load_b_kn<X3, LDS>(fk, sK, ks * 8, (n0 + n) * 8, g, t);
+          attn::mma_sum<X3>(acc[n], fs, fk);
+        }
+      }
+      float* part = a.dq_part + (((size_t)blockIdx.x * gridDim.y + bh) * a.Tq) * D;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int gq = qt * QB + mq + g + 8 * r;
+        if (gq >= a.Tq) continue;
+#pragma unroll
+        for (int n = 0; n < NDW; ++n)
+          *reinterpret_cast<float2*>(part + (size_t)gq * D + (n0 + n) * 8 + 2 * t) =
+              make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      }
+    }
+    __syncthreads();  // this stage is read: the next iteration may refill it
   }
 
+  T* dkh = a.dk.head(b, h);
+  T* dvh = a.dv.head(b, h);
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int gk = k0 + krow0 + i;
-    if (gk >= Tk) continue;
-    T* dkr = dk + ((size_t)bh * Tk + gk) * D;
-    T* dvr = dv + ((size_t)bh * Tk + gk) * D;
+  for (int r = 0; r < 2; ++r) {
+    const int gk = k0 + wr + g + 8 * r;
+    if (!key_ok[r]) continue;
+    T* pk = dkh + (long long)gk * a.dk.st + 2 * t;
+    T* pv = dvh + (long long)gk * a.dv.st + 2 * t;
 #pragma unroll
-    for (int c = 0; c < OCOLS; ++c) {
-      dkr[lane + LANES * c] = from_float<T>(dk_acc[i][c]);
-      dvr[lane + LANES * c] = from_float<T>(dv_acc[i][c]);
+    for (int n = 0; n < ND; ++n) {
+      store2(pk + n * 8, dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
+      store2(pv + n * 8, dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
 }
 
+// dQ = scale * the sum of the key blocks' partials, in block order: one
+// thread per 4 elements of a row.
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const float* __restrict__ kv_valid, const T* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   T* __restrict__ dq, int H, int Tq, int Tk, int causal, float scale,
-                   Dropout drop) {
-  constexpr int LD = D + 1;
-  constexpr int OCOLS = D / LANES;
-  extern __shared__ float smem[];
-  float* sK = smem;             // [BK][LD]
-  float* sV = sK + BK * LD;     // [BK][LD]
-  float* sQ = sV + BK * LD;     // [BQ][LD], scale folded in
-  float* sdO = sQ + BQ * LD;    // [BQ][LD]
-  float* sP = sdO + BQ * LD;    // [BQ][LDP]  P o M (unused here)
-  float* sdS = sP + BQ * LDP;   // [BQ][LDP]
-  float* sL = sdS + BQ * LDP;   // [BQ]
-  float* sD = sL + BQ;          // [BQ]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * BQ;
-  const int lane = threadIdx.x % LANES;
-  const int row0 = (threadIdx.x / LANES) * ROWS;
-  const T* kb = k + (size_t)bh * Tk * D;
-  const T* vb = v + (size_t)bh * Tk * D;
-  const float* valid = kv_valid ? kv_valid + (size_t)b * Tk : nullptr;
-
-  stage<T, D>(sQ, q + (size_t)bh * Tq * D, q0, Tq, scale);
-  stage<T, D>(sdO, dout + (size_t)bh * Tq * D, q0, Tq, 1.f);
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
-    const int gq = q0 + r;
-    sL[r] = gq < Tq ? lse[(size_t)bh * Tq + gq] : 0.f;
-    sD[r] = gq < Tq ? delta[(size_t)bh * Tq + gq] : 0.f;
+__global__ void __launch_bounds__(DELTA_THREADS)
+attn_bwd_dq_kernel(const float* __restrict__ part, Mat<T> dq, int H, int Tq, int rows, int n_kb,
+                   float scale) {
+  constexpr int C4 = D / 4;
+  const size_t i = blockIdx.x * (size_t)DELTA_THREADS + threadIdx.x;
+  if (i >= (size_t)rows * C4) return;
+  const int row = (int)(i / C4), c = (int)(i % C4) * 4;  // row = (b*H + h)*Tq + q
+  const float* p = part + (size_t)row * D + c;
+  float4 sum = *reinterpret_cast<const float4*>(p);
+  for (int kb = 1; kb < n_kb; ++kb) {
+    const float4 x = *reinterpret_cast<const float4*>(p + (size_t)kb * rows * D);
+    sum.x += x.x;
+    sum.y += x.y;
+    sum.z += x.z;
+    sum.w += x.w;
   }
+  const int bh = row / Tq, q = row % Tq;
+  T* o = dq.head(bh / H, bh % H) + (long long)q * dq.st + c;
+  store2(o, sum.x * scale, sum.y * scale);
+  store2(o + 2, sum.z * scale, sum.w * scale);
+}
 
-  float acc[ROWS][OCOLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-    for (int c = 0; c < OCOLS; ++c) acc[i][c] = 0.f;
+template <typename T, int D>
+attn::Prepared prepared() {
+  using C = Cfg<T, D>;
+  static attn::PreparedCache cache;
+  return attn::prepare(cache, attn_bwd_dkdv_kernel<T, D>, C::THREADS, C::DKDV_SMEM);
+}
 
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();  // the previous tile's reads are done (and sQ/sdO/sL/sD are staged)
-    stage<T, D>(sK, kb, k0, Tk, 1.f);
-    stage<T, D>(sV, vb, k0, Tk, 1.f);
-    __syncthreads();
-    probs_and_ds<D>(sQ, sdO, sK, sV, sL, sD, sP, sdS, valid, bh, q0, k0, Tq, Tk, causal, drop);
-    __syncthreads();
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float dsv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) dsv[i] = sdS[(row0 + i) * LDP + j];
-#pragma unroll
-      for (int c = 0; c < OCOLS; ++c) {
-        const float kx = sK[j * LD + lane + LANES * c];
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) acc[i][c] = fmaf(dsv[i], kx, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int gq = q0 + row0 + i;
-    if (gq >= Tq) continue;
-    T* r = dq + ((size_t)bh * Tq + gq) * D;
-#pragma unroll
-    for (int c = 0; c < OCOLS; ++c) r[lane + LANES * c] = from_float<T>(acc[i][c] * scale);
-  }
+template <typename T, int D>
+long long scratch_floats(int B, int H, int Tq, int Tk) {
+  return (long long)((Tk + Cfg<T, D>::RES - 1) / Cfg<T, D>::RES) * B * H * Tq * D;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kv_valid, const void* out,
-           const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv, int B,
-           int H, int Tq, int Tk, int causal, const Dropout& drop, cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
-  const float* valid = static_cast<const float*>(kv_valid);
-  const float scale = (float)(1.0 / sqrt((double)D));
+           const void* dout, const float* lse, float* delta, float* dq_part, void* dq, void* dk,
+           void* dv, const long long* strides, int B, int H, int Tq, int Tk, int causal,
+           const Dropout& drop, cudaStream_t stream) {
+  using C = Cfg<T, D>;
+  const attn::Prepared p = prepared<T, D>();
+  if (p.err != cudaSuccess) return (int)p.err;
   const int rows = B * H * Tq;
+  const float scale = (float)(1.0 / sqrt((double)D));
   const int delta_blocks = (int)(((size_t)rows * 32 + DELTA_THREADS - 1) / DELTA_THREADS);
   attn_bwd_delta_kernel<T, D><<<delta_blocks, DELTA_THREADS, 0, stream>>>(
-      static_cast<const T*>(out), do_, delta, rows);
+      attn::make_cmat<T>(out, strides + 9), attn::make_cmat<T>(dout, strides + 12), delta, H, Tq,
+      rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  err = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkdv_kernel<T, D><<<dim3((Tk + BK - 1) / BK, B * H), THREADS, smem, stream>>>(
-      q_, k_, v_, valid, do_, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk,
-      causal, scale, drop);
+  const int n_kb = (Tk + C::RES - 1) / C::RES;
+  BwdArgs<T> a{attn::make_cmat<T>(q, strides),      attn::make_cmat<T>(k, strides + 3),
+               attn::make_cmat<T>(v, strides + 6),  attn::make_cmat<T>(dout, strides + 12),
+               attn::make_mat<T>(dq, strides + 15), attn::make_mat<T>(dk, strides + 18),
+               attn::make_mat<T>(dv, strides + 21), static_cast<const float*>(kv_valid),
+               lse,                                 delta,
+               dq_part,                             H,
+               Tq,                                  Tk,
+               causal,                              scale,
+               drop};
+  attn_bwd_dkdv_kernel<T, D><<<dim3(n_kb, B * H), C::THREADS, C::DKDV_SMEM, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_dq_kernel<T, D><<<dim3((Tq + BQ - 1) / BQ, B * H), THREADS, smem, stream>>>(
-      q_, k_, v_, valid, do_, lse, delta, static_cast<T*>(dq), H, Tq, Tk, causal, scale, drop);
+  const int dq_blocks = (int)(((size_t)rows * (D / 4) + DELTA_THREADS - 1) / DELTA_THREADS);
+  attn_bwd_dq_kernel<T, D><<<dq_blocks, DELTA_THREADS, 0, stream>>>(dq_part, a.dq, H, Tq, rows, n_kb,
+                                                                     scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/dq/out/dout [B,H,Tq,D], k/v/dk/dv [B,H,Tk,D], all contiguous and of one
-// dtype (0 = float32, 1 = bfloat16); kv_valid [B,Tk] float32 or null; lse
-// [B,H,Tq] float32 from the forward; delta [B,H,Tq] float32 scratch.  The
-// dropout arguments are the forward's (attn_common.cuh).  Launches the delta,
-// dK/dV and dQ kernels on the stream and returns a cudaError_t: 0 when all
-// three launches were accepted.
+// Floats of f32 scratch the backward needs for its dQ partials: one
+// [B, H, Tq, D] plane per key block; -1 for a shape it does not take.
+extern "C" long long flash_attn_bwd_scratch_floats(int B, int H, int Tq, int Tk, int D, int dtype) {
+  if (B < 1 || H < 1 || Tq < 1 || Tk < 1) return -1;
+  if (dtype == 0 && D == 64) return scratch_floats<float, 64>(B, H, Tq, Tk);
+  if (dtype == 0 && D == 128) return scratch_floats<float, 128>(B, H, Tq, Tk);
+  if (dtype == 1 && D == 64) return scratch_floats<__nv_bfloat16, 64>(B, H, Tq, Tk);
+  if (dtype == 1 && D == 128) return scratch_floats<__nv_bfloat16, 128>(B, H, Tq, Tk);
+  return -1;
+}
+
+// q/dq/out/dout [B,H,Tq,D], k/v/dk/dv [B,H,Tk,D], all of one dtype (0 =
+// float32, 1 = bfloat16), each a strided view: strides[3*i .. 3*i+2] are the
+// batch, head and time strides in elements of q, k, v, out, dout, dq, dk, dv
+// (i = 0..7), the D axis contiguous, every row on 16 bytes.  kv_valid [B,Tk]
+// float32 or null; lse [B,H,Tq] float32 from the forward; delta [B,H,Tq]
+// float32 scratch; dq_part f32 scratch of flash_attn_bwd_scratch_floats
+// floats.  The dropout arguments are the forward's (attn_common.cuh).
+// Launches the delta, dK/dV and dQ kernels on the stream and returns a
+// cudaError_t: 0 when all three launches were accepted.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* kv_valid,
                               const void* out, const void* dout, const void* lse, void* delta,
-                              void* dq, void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
-                              int dtype, int causal, int dropout, unsigned int seed,
-                              unsigned int threshold, float mult, int bq, int nj, void* stream) {
+                              void* dq_part, void* dq, void* dk, void* dv, const long long* strides,
+                              int B, int H, int Tq, int Tk, int D, int dtype, int causal,
+                              int dropout, unsigned int seed, unsigned int threshold, float mult,
+                              int bq, int nj, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || B * H > 65535) return (int)cudaErrorInvalidValue;
   if (dropout && (bq < 1 || nj != (Tq + bq - 1) / bq)) return (int)cudaErrorInvalidValue;
   const Dropout drop{dropout, seed, threshold, mult, bq, nj};
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  float* part = static_cast<float*>(dq_part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, kv_valid, out, dout, l, dl, dq, dk, dv, B, H, Tq, Tk, causal,
-                             drop, s);
+    return launch<float, 64>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv, strides, B, H,
+                             Tq, Tk, causal, drop, s);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, kv_valid, out, dout, l, dl, dq, dk, dv, B, H, Tq, Tk,
-                              causal, drop, s);
+    return launch<float, 128>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv, strides, B,
+                              H, Tq, Tk, causal, drop, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, kv_valid, out, dout, l, dl, dq, dk, dv, B, H, Tq,
-                                     Tk, causal, drop, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv,
+                                     strides, B, H, Tq, Tk, causal, drop, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, kv_valid, out, dout, l, dl, dq, dk, dv, B, H, Tq,
-                                      Tk, causal, drop, s);
+    return launch<__nv_bfloat16, 128>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv,
+                                      strides, B, H, Tq, Tk, causal, drop, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,8 +14,15 @@ Attention-prob dropout replays the JAX package's ``"hash"`` mask source
 with ``bq = resolve_block_q(Tq, Tk)`` (or the caller's ``block_q``) and
 ``nj = ceil(Tq / bq)``, and a kept probability is scaled by
 ``float32(1) / float32(1 - rate)``.  ``block_q`` fixes only that numbering:
-the kernels tile at 64 rows whatever it is.  The TPU's ``"prng"`` source has
+the kernels' own tiles do not follow it.  The TPU's ``"prng"`` source has
 no counterpart here.
+
+The kernels take q, k and v as strided [B, H, T, Dh] views whose Dh axis is
+contiguous and whose rows start on 16 bytes (the model's head split of a [B,
+T, H*Dh] projection is one), so no layout copy precedes a launch; the
+forward writes its output into [B, Tq, H, Dh] storage and returns that
+storage's [B, H, Tq, Dh] view, whose ``transpose(1, 2)`` is the model's [B,
+Tq, H*Dh] without a copy.
 
 Each wrapper takes its plain version for CPU tensors; for CUDA tensors it
 launches its kernel or raises.  The kernels' designs, and what bounds them on
@@ -52,8 +59,10 @@ def library() -> ctypes.CDLL:
     """Build (at first use) and bind the forward kernel's library."""
     lib = load_library(NAME, SOURCES)
     fn = lib.flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + _DROPOUT_ARGTYPES + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + _DROPOUT_ARGTYPES + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.flash_attn_fwd_split.argtypes = [ctypes.c_int] * 6
+    lib.flash_attn_fwd_split.restype = ctypes.c_int
     return lib
 
 
@@ -62,8 +71,10 @@ def bwd_library() -> ctypes.CDLL:
     """Build (at first use) and bind the backward kernels' library."""
     lib = load_library(BWD_NAME, BWD_SOURCES)
     fn = lib.flash_attn_bwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + _DROPOUT_ARGTYPES + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + _DROPOUT_ARGTYPES + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.flash_attn_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
+    lib.flash_attn_bwd_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -242,9 +253,25 @@ def _check(q, k, v, kv_valid) -> torch.device:
                              f"got {q.dtype}, {k.dtype}, {v.dtype}")
         if Dh not in HEAD_DIMS:
             raise ValueError(f"head dim {Dh} not in {HEAD_DIMS}")
-        if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-            raise ValueError("q, k, v must be contiguous [B, H, T, Dh]")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_rows(name, t)
     return q.device
+
+
+def _check_rows(name: str, t: torch.Tensor) -> None:
+    """The kernels read a [B, H, T, Dh] operand row by row with 16-byte
+    copies: its Dh axis must be contiguous and every row start on 16 bytes."""
+    step = 16 // t.element_size()
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % step for s in t.stride()[:3]):
+        raise ValueError(f"{name} must be a [B, H, T, Dh] view with a contiguous Dh axis and rows on "
+                         f"16 bytes; got strides {t.stride()}")
+
+
+def _strides(*ts: torch.Tensor):
+    """The batch, head and time strides of each [B, H, T, Dh] operand, in
+    elements, as the C entry points read them."""
+    vals = [s for t in ts for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _valid_f32(kv_valid):
@@ -255,18 +282,30 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch_fwd(q, k, v, kv_valid, causal, dropout_rate, seed, block_q, with_lse):
+def fwd_split(B: int, H: int, Tq: int, Tk: int, Dh: int, dtype=torch.float32) -> int:
+    """The number of cluster blocks that share one q tile's keys in the
+    forward kernel at this shape (1 = no split), as a launch with ``split=0``
+    chooses it on the current card."""
+    s = library().flash_attn_fwd_split(B, H, Tq, Tk, Dh, _DTYPE_CODES[dtype])
+    if s < 1:
+        raise RuntimeError(f"{NAME}: no split for this shape: cudaError_t {-s}")
+    return s
+
+
+def _launch_fwd(q, k, v, kv_valid, causal, dropout_rate, seed, block_q, with_lse, split=0):
+    """Launch the forward kernel; ``split`` forces the number of cluster
+    blocks per q tile (1-4; 0 lets the kernel choose)."""
     B, H, Tq, Dh = q.shape
     Tk = k.shape[2]
     drop = _dropout_args(dropout_rate, seed, Tq, Tk, block_q)
-    out = torch.empty_like(q)
+    out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) if with_lse else None
     valid = _valid_f32(kv_valid)  # held until the launch is enqueued
     fn = library().flash_attn_fwd
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), out.data_ptr(),
-                 _ptr(lse), B, H, Tq, Tk, Dh, _DTYPE_CODES[q.dtype], int(causal), *drop,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 _ptr(lse), _strides(q, k, v, out), B, H, Tq, Tk, Dh, _DTYPE_CODES[q.dtype],
+                 int(causal), split, *drop, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{NAME} launch failed: cudaError_t {err}")
     launch_counts[NAME] += 1
@@ -302,18 +341,25 @@ def flash_attention_bwd(
         raise ValueError("the backward kernels need the forward's out [B, H, Tq, Dh] and lse [B, H, Tq]")
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise ValueError(f"out and dout must be {q.dtype} and lse float32")
-    if not (out.is_contiguous() and dout.is_contiguous() and lse.is_contiguous()):
-        raise ValueError("out, dout and lse must be contiguous")
+    if not lse.is_contiguous():
+        raise ValueError("lse must be contiguous")
+    _check_rows("out", out)
+    _check_rows("dout", dout)
     drop = _dropout_args(dropout_rate, seed, Tq, Tk, block_q)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lib = bwd_library()
+    dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=device) for x in (q, k, v))
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=device)
+    # the dQ partial of every key block, summed in a fixed order by the last kernel
+    dq_part = torch.empty(lib.flash_attn_bwd_scratch_floats(B, H, Tq, Tk, Dh, _DTYPE_CODES[q.dtype]),
+                          dtype=torch.float32, device=device)
     valid = _valid_f32(kv_valid)  # held until the launches are enqueued
-    fn = bwd_library().flash_attn_bwd
     with torch.cuda.device(device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), out.data_ptr(),
-                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), B, H, Tq, Tk, Dh, _DTYPE_CODES[q.dtype], int(causal), *drop,
-                 torch.cuda.current_stream(device).cuda_stream)
+        err = lib.flash_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), out.data_ptr(),
+                                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
+                                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                                 _strides(q, k, v, out, dout, dq, dk, dv), B, H, Tq, Tk, Dh,
+                                 _DTYPE_CODES[q.dtype], int(causal), *drop,
+                                 torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{BWD_NAME} launch failed: cudaError_t {err}")
     launch_counts[BWD_NAME] += 1
@@ -355,10 +401,12 @@ def flash_attention(
     """softmax(q k^T / sqrt(Dh) + masks) o M v, differentiable in q, k, v.
 
     CPU tensors take ``flash_attention_reference`` (and, under autograd,
-    ``flash_attention_bwd_reference``).  CUDA tensors must be contiguous, of
-    one dtype (float32 or bfloat16) with Dh 64 or 128, on one device; they
-    launch the kernel on the current stream, and anything else raises.  The
-    log-sum-exp is written only when a gradient will be taken."""
+    ``flash_attention_bwd_reference``).  CUDA tensors must be [B, H, T, Dh]
+    views with a contiguous Dh axis and rows on 16 bytes, of one dtype
+    (float32 or bfloat16) with Dh 64 or 128, on one device; they launch the
+    kernel on the current stream and return the [B, H, Tq, Dh] view of [B,
+    Tq, H, Dh] storage; anything else raises.  The log-sum-exp is written
+    only when a gradient will be taken."""
     _check(q, k, v, kv_valid)
     _dropout_args(dropout_rate, seed, q.shape[2], k.shape[2], block_q)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

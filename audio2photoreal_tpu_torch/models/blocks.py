@@ -140,7 +140,7 @@ class MultiHeadAttention(nn.Module):
         B, Tq, _ = q.shape
         rate = self.dropout if self.training else 0.0
         if self.flash and bias is None and min(Tq, k.shape[1]) >= self.FLASH_MIN_LEN:
-            qkv = [self._split(x).contiguous() for x in (q, k, v)]
+            qkv = [self._split(x) for x in (q, k, v)]  # strided views: the kernel reads them as they are
             if rate > 0.0:
                 out = flash_attention(*qkv, None, False, rate, draw_seed(generator))
             else:

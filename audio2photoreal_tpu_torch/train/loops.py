@@ -3,7 +3,8 @@
 Counterpart of ``audio2photoreal_tpu/train/loops.py:make_diffusion_train_step``
 (reference: training_loop.py:174-215 + gaussian_diffusion.py:1195-1271):
 sample t and noise, diffuse, run the training forward, masked L2 (+ velocity,
-+ the vb diagnostic), backward, and one optimizer update unless the loss or
+masked by the batch's lengths, + the vb diagnostic), backward, and one
+optimizer update unless the loss or
 the gradient norm is not finite, in which case the update is skipped
 (the role of the reference's fp16 NaN backoff).
 
@@ -26,6 +27,21 @@ from audio2photoreal_tpu_torch.diffusion.schedules import Schedule
 from audio2photoreal_tpu_torch.train.state import TrainState, global_norm
 
 QUARTILES = 4
+
+
+def validity_mask(batch: Dict[str, torch.Tensor], T: int) -> Optional[torch.Tensor]:
+    """[B, T, 1] float mask of the frames ``batch["lengths"]`` counts as
+    valid, or None when the batch has no lengths.  The velocity term is
+    masked by validity alone, as the reference does
+    (diffusion/losses.py:107-112): ``batch["mask"]`` also drops a face
+    batch's missing frames, which the velocity term keeps.  The JAX
+    package's step passes no velocity mask (its train/loops.py:85), so there
+    the velocity term takes ``mask``; this step follows the reference."""
+    lengths = batch.get("lengths")
+    if lengths is None:
+        return None
+    frames = torch.arange(T, device=lengths.device)
+    return (frames[None] < lengths.reshape(-1, 1)).to(batch["mask"].dtype)[..., None]
 
 
 def diffusion_train_step(
@@ -62,7 +78,8 @@ def diffusion_train_step(
     out = model(xt, t, batch["audio"], batch["keyframes"], batch.get("keyframe_valid"),
                 cond_drop_prob=dcfg.cond_drop_prob, generator=generator)
     terms = losses.training_losses(schedule, dcfg.predict, out, x0, xt, t, batch["mask"][..., None],
-                                   lambda_vel=dcfg.lambda_vel, var_type=dcfg.var_type, with_vb=True)
+                                   lambda_vel=dcfg.lambda_vel, var_type=dcfg.var_type, with_vb=True,
+                                   vel_mask=validity_mask(batch, x0.shape[1]))
     loss = (terms["loss"] * weights).mean()
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()

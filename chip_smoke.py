@@ -10,14 +10,21 @@ exception and a nonzero exit.
 1. device: the card, its power limit, torch/CUDA versions; TF32 is turned off
    for matmuls and cuDNN convs, so f32 stays f32 throughout.
 2. build: compile every kernel library from kernels/csrc/ (nvcc, sm_90a), one
-   nvcc per library, all started together; ptxas registers and spills.
+   nvcc per library, all started together; ptxas registers and spills; the
+   tensor-core instructions (HMMA / HGMMA) in each attention kernel's SASS
+   (``cuobjdump --dump-sass``), which every kernel with products (the
+   forward, the backward's dK/dV + dQ-partial kernel) must have, f32 and
+   bf16.
 3. kernel vs plain, attention: the CUDA attention kernel against its plain
    PyTorch version on the card, f32 and bf16, at the pose and face
    denoisers' shapes (Dh 64 and 128), the face cond-encoder's 1998 x 1998,
-   and a small ragged masked case; max abs error, the time of each, the time
-   of ``scaled_dot_product_attention`` with the same mask (a yardstick only),
-   and the bound (f32 FLOPs over the CUDA-core rate, bf16 FLOPs over the
-   tensor-core rate, against bytes over the HBM rate).
+   and a small ragged masked case, on the model's layout (q, k, v the
+   head-split views of [B, T, H*Dh] projections); max abs error, the time of
+   each, the time of ``scaled_dot_product_attention`` with the same mask (a
+   yardstick only), the cluster split the kernel took, and two bounds: the
+   CUDA-core one (f32 FLOPs over 67 TFLOP/s; bf16 over the tensor cores'
+   989) against bytes over the HBM rate, and for f32 the 3xTF32 one (three
+   TF32 products per f32 product: FLOPs over 495/3 TFLOP/s).
 4. kernel vs plain, raster: the tile rasterizer against its plain version at
    the full image (1024x667) on the mesh_density=10 synthetic mesh (9,322
    faces) posed by random poses and projected by the synthetic rig's two
@@ -63,7 +70,7 @@ exception and a nonzero exit.
    twice and compared bit for bit; times of the kernels, the plain versions
    and the backward of ``scaled_dot_product_attention`` with the same mask
    at rate 0 (a yardstick only), and the backward's bound (10 B H Tq Tk Dh
-   flops, flash.py:266, against bytes).
+   flops, flash.py:266, against bytes; for f32 also over 495/3 TFLOP/s).
 9. train parity: a full-width pose model from ``--seed``, one deterministic
    step at batch 4 with fixed t and noise, on the card (kernels) against the
    CPU (plain versions): loss 1e-5 relative, every gradient within 1e-4 of
@@ -78,7 +85,8 @@ exception and a nonzero exit.
    steps/s, peak memory, and one more step under torch.profiler for the
    device time by kernel.
 
-Then one line with every kernel's numbers, the nvidia-smi line, and last
+Then one line with every kernel's numbers (the f32 attention rows' bound
+there is the 3xTF32 one, the arithmetic they do), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/.
 """
 
@@ -107,7 +115,9 @@ RASTER_TOL = 1e-5  # depth / UV / barycentrics, kernel vs plain
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by input
 # type, f32 on the CUDA cores and bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12}
+# "tf32x3": the f32 attention kernels' products as three TF32 tensor-core
+# products each (attn_common.cuh), so 495 TFLOP/s of TF32 buys a third of that
+FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 RASTER_FLOPS_PER_TEST = 17  # csrc/raster.cu: 9 mul + 8 add/sub per listed (pixel, face)
 # (B, H, Tq, Tk, Dh, masked): self- and cross-attention of the pose and the
 # face denoiser under CFG with 2 samples, the face cond-encoder's
@@ -197,6 +207,48 @@ def phase_build() -> None:
              seconds=seconds, all_builds_wall_s=wall, ptxas=ptxas)
 
 
+def _sass_tensor_ops(lib: str) -> dict:
+    """{kernel (mangled): tensor-core instructions (HMMA / HGMMA)} in a
+    built library's SASS."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    dump = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "--dump-sass", lib],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    return counts
+
+
+def phase_sass() -> None:
+    """The tensor-core instructions in each attention kernel: every kernel
+    with products must have some (the forward, and the backward's dK/dV
+    kernel, which also forms the dQ partials); the backward's delta and dQ
+    kernels are reductions."""
+    from audio2photoreal_tpu_torch.kernels import build, flash_attn
+
+    for name, sources in ((flash_attn.NAME, flash_attn.SOURCES), (flash_attn.BWD_NAME, flash_attn.BWD_SOURCES)):
+        counts = _sass_tensor_ops(str(build.library_path(name, sources)))
+        rows = {}
+        for fn, n in counts.items():
+            kind = next((k for k in ("attn_fwd_kernel", "attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
+                                     "attn_bwd_delta_kernel") if k in fn), fn)
+            dtype = "float32" if f"{kind}If" in fn else "bfloat16" if "bfloat16" in fn else "?"
+            dh = "128" if "Li128E" in fn else "64" if "Li64E" in fn else "?"
+            rows[f"{kind}<{dtype},{dh}>"] = n
+        emit("sass", library=name, tensor_core_instructions=rows)
+        missing = [k for k, n in rows.items() if n == 0 and not k.startswith(("attn_bwd_delta", "attn_bwd_dq"))]
+        if missing or not rows:
+            raise AssertionError(f"{name}: no tensor-core instruction in {missing or 'any kernel'}")
+
+
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
 
@@ -219,6 +271,11 @@ def _bound(nbytes: float, flops: float, dtype: str = "float32"):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def _split_heads(x, H: int):
+    """[B, T, H*Dh] -> the model's strided [B, H, T, Dh] view (blocks.py:_split)."""
+    return x.unflatten(-1, (H, -1)).transpose(1, 2)
+
+
 def phase_kernels(seed: int) -> dict:
     import torch
     import torch.nn.functional as F
@@ -226,10 +283,15 @@ def phase_kernels(seed: int) -> dict:
     from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention, flash_attention_reference
     from audio2photoreal_tpu_torch.ops.attention import causal_bias, padding_bias
 
+    from audio2photoreal_tpu_torch.kernels.flash_attn import fwd_split
+
     g = torch.Generator(device="cuda").manual_seed(seed)
     summary = {}
     for B, H, Tq, Tk, Dh, masked in KERNEL_CASES:
-        q, k, v = (torch.randn((B, H, T, Dh), generator=g, device="cuda") for T in (Tq, Tk, Tk))
+        # the model's layout: q from its projection, k and v slices of one stacked projection
+        q = _split_heads(torch.randn((B, Tq, H * Dh), generator=g, device="cuda"), H)
+        kv = torch.randn((B, Tk, 2 * H * Dh), generator=g, device="cuda")
+        k, v = _split_heads(kv[..., : H * Dh], H), _split_heads(kv[..., H * Dh :], H)
         kv_valid = None
         if masked:  # the last keys of every batch row but the last are masked
             lengths = torch.tensor([Tk - 50 * (B - 1 - b) for b in range(B)], device="cuda")
@@ -256,10 +318,14 @@ def phase_kernels(seed: int) -> dict:
             l1 = _time_ms(lib)
             item = qd.element_size()
             nbytes = item * (2 * B * H * Tq * Dh + 2 * B * H * Tk * Dh) + (4 * B * Tk if masked else 0)
-            bound_ms, bound_by = _bound(nbytes, 4.0 * B * H * Tq * Tk * Dh, name)
+            flops = 4.0 * B * H * Tq * Tk * Dh
+            bound_ms, bound_by = _bound(nbytes, flops, name)
+            bound_tc_ms, bound_tc_by = _bound(nbytes, flops, "tf32x3") if name == "float32" else (None, None)
             row = dict(B=B, H=H, Tq=Tq, Tk=Tk, Dh=Dh, kv_valid_causal=masked, dtype=name,
+                       layout="strided views of [B, T, H*Dh]", split=fwd_split(B, H, Tq, Tk, Dh, dtype),
                        max_abs_err=err, tol=TOL[name], ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
-                       library_ms=l1, library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by)
+                       library_ms=l1, library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by,
+                       bound_tc_ms=bound_tc_ms, bound_tc_by=bound_tc_by)
             emit("kernel_vs_plain", kernel="flash_attn_fwd", **row)
             if not err <= TOL[name]:
                 raise AssertionError(f"flash_attn_fwd disagrees with its plain version: {row}")
@@ -963,6 +1029,8 @@ def phase_train_kernels(seed: int) -> dict:
             nbytes = (item * (3 * B * H * Tq * Dh + 2 * B * H * Tk * Dh) + 4 * B * H * Tq
                       + item * (B * H * Tq * Dh + 2 * B * H * Tk * Dh) + (4 * B * Tk if masked else 0))
             bound_ms, bound_by = _bound(nbytes, 10.0 * B * H * Tq * Tk * Dh, name)
+            bound_tc_ms, bound_tc_by = (_bound(nbytes, 10.0 * B * H * Tq * Tk * Dh, "tf32x3") if name == "float32"
+                                        else (None, None))
             row = dict(B=B, H=H, Tq=Tq, Tk=Tk, Dh=Dh, kv_valid_causal=masked, dtype=name, dropout=TRAIN_DROPOUT,
                        mask_rate05_max_abs_err=mask_err, fwd_max_abs_err=fwd_err, max_abs_err=err,
                        grad_scale=scale, tol=GRAD_TOL[name] * scale, bitwise_deterministic=identical,
@@ -970,7 +1038,7 @@ def phase_train_kernels(seed: int) -> dict:
                        fwd_dropout_ms=(fk1 + fk2) / 2, fwd_dropout_plain_ms=(fp1 + fp2) / 2,
                        fwd_no_dropout_ms=(fn1 + fn2) / 2, mask_in_kernel_ms=(fk1 + fk2 - fn1 - fn2) / 2,
                        mask_plain_ms=mask_plain_ms, mask_bound_ms=mask_bound_ms,
-                       bound_ms=bound_ms, bound_by=bound_by)
+                       bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms, bound_tc_by=bound_tc_by)
             emit("kernel_vs_plain", kernel="flash_attn_bwd", **row)
             if not (err <= GRAD_TOL[name] * scale and fwd_err <= TOL[name] and identical):
                 raise AssertionError(f"flash_attn_bwd disagrees with its plain version: {row}")
@@ -1161,6 +1229,7 @@ def main() -> None:
 
     smi = phase_device()
     phase_build()
+    phase_sass()
     attn = phase_kernels(args.seed)
     ras = phase_raster(args.seed)
     phase_slice_parity(args.seed)
@@ -1176,6 +1245,9 @@ def main() -> None:
     from audio2photoreal_tpu_torch.kernels import display_pack, flash_attn, raster
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the f32 attention rows' bound is that of the arithmetic they do: 3xTF32
+    attn_keys = ("max_abs_err", "ms", "plain_ms", "library_ms")
+    tc = lambda row: {"bound_ms": row["bound_tc_ms"], "bound_by": row["bound_tc_by"]}  # noqa: E731
     disp = launches["display"]
     print(json.dumps({"kernels": [
         {"name": flash_attn.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_fwd.cu",
@@ -1183,11 +1255,14 @@ def main() -> None:
          "launches": launches[flash_attn.NAME] + launches["face"] + train_fwd,
          "launches_by_path": {"generate": launches[flash_attn.NAME], "face": launches["face"], "train": train_fwd},
          "dropout": "replayed hash mask in the kernel (training); these numbers are at rate 0",
-         **{k: attn[k] for k in keys}},
+         "arithmetic": "3xTF32 on mma.sync m16n8k8 (f32); bound_ms at 495/3 TFLOP/s",
+         **{k: attn[k] for k in attn_keys}, **tc(attn)},
         {"name": flash_attn.BWD_NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_bwd.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:157", "launches": train_bwd,
          "launches_by_path": {"train": train_bwd}, "dropout": bwd["dropout"], "shape": [
-             bwd[k] for k in ("B", "H", "Tq", "Tk", "Dh")], **{k: bwd[k] for k in keys}},
+             bwd[k] for k in ("B", "H", "Tq", "Tk", "Dh")],
+         "arithmetic": "3xTF32 on mma.sync m16n8k8 (f32); bound_ms at 495/3 TFLOP/s",
+         **{k: bwd[k] for k in attn_keys}, **tc(bwd)},
         {"name": raster.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/raster.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas_raster.py:143", "launches": launches[raster.NAME],
          **{k: ras[k] for k in keys}},

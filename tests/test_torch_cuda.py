@@ -64,10 +64,63 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q, q, q)
     q = torch.randn(1, 2, 8, 64, device=cuda)
+    x = torch.randn(1, 2, 64, 8, device=cuda).transpose(2, 3)  # Dh axis not contiguous
     with pytest.raises(ValueError, match="contiguous"):
-        flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+        flash_attention(x, x, x)
+    x = torch.randn(1, 2, 8, 68, device=cuda)[..., 1:65]  # rows off 16 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(x, x, x)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention(q.half(), q.half(), q.half())
+
+
+def _split_heads(x, H):
+    """[B, T, H*Dh] -> the model's strided [B, H, T, Dh] view (blocks.py:_split)."""
+    return x.unflatten(-1, (H, -1)).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,Tq,Tk,Dh,masked", [
+    (4, 4, 600, 2000, 128, False), (4, 4, 600, 600, 64, False), (2, 3, 77, 203, 64, True),
+])
+def test_kernel_takes_the_models_strided_views(cuda, dtype, tol, B, H, Tq, Tk, Dh, masked):
+    """q from its own projection, k and v as slices of one stacked [B, Tk,
+    2*H*Dh] projection, as the denoiser's cross-attention hands them over; the
+    output is the [B, H, Tq, Dh] view of [B, Tq, H, Dh] storage."""
+    g = torch.Generator(device=cuda).manual_seed(Tq + Dh)
+    q = _split_heads(torch.randn((B, Tq, H * Dh), generator=g, device=cuda).to(dtype), H)
+    kv = torch.randn((B, Tk, 2 * H * Dh), generator=g, device=cuda).to(dtype)
+    k, v = _split_heads(kv[..., : H * Dh], H), _split_heads(kv[..., H * Dh :], H)
+    kv_valid = None
+    if masked:
+        kv_valid = (torch.arange(Tk, device=cuda)[None] < torch.tensor([[150], [Tk]], device=cuda)).float()
+    got = flash_attention(q, k, v, kv_valid, causal=masked)
+    assert got.shape == (B, H, Tq, Dh) and got.transpose(1, 2).is_contiguous()
+    want = flash_attention_reference(q.contiguous(), k.contiguous(), v.contiguous(), kv_valid, causal=masked)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,H,Tq,Tk,Dh,masked,rate", [
+    (4, 4, 600, 2000, 128, False, 0.0), (4, 4, 600, 600, 64, False, 0.3), (2, 3, 77, 203, 128, True, 0.3),
+])
+def test_kernel_split_across_a_cluster_matches_plain(cuda, dtype, tol, B, H, Tq, Tk, Dh, masked, rate):
+    """Every cluster split (1-4 blocks sharing a q tile's keys, combined
+    through distributed shared memory) gives the plain version's output and
+    log-sum-exp."""
+    q, k, v, _, kv_valid = _attn_case(cuda, B, H, Tq, Tk, Dh, masked, dtype)
+    want = flash_attention_reference(q, k, v, kv_valid, masked, rate, 7)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / Dh**0.5
+    if masked:
+        logits = logits + flash_attn._bias(q, k, kv_valid, True)
+    want_lse = torch.logsumexp(logits, -1)
+    assert 1 <= flash_attn.fwd_split(B, H, Tq, Tk, Dh, dtype) <= 4
+    for split in (1, 2, 3, 4):
+        got, lse = flash_attn._launch_fwd(q, k, v, kv_valid, masked, rate, 7, None, True, split=split)
+        assert (got.float() - want.float()).abs().max().item() <= tol, split
+        assert (lse - want_lse).abs().max().item() <= 1e-5 * max(1.0, want_lse.abs().max().item()), split
 
 
 @pytest.mark.cuda
@@ -142,6 +195,25 @@ def test_backward_kernel_matches_plain(cuda, dtype, B, H, Tq, Tk, Dh, masked, ra
         assert a.dtype == dtype and a.shape == b.shape, name
         err = (a.float() - b.float()).abs().max().item()
         assert err <= GRAD_TOL[dtype] * scale, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Tq,Tk,Dh,masked,rate", [
+    (4, 4, 600, 2000, 64, False, 0.1), (2, 4, 600, 2000, 128, False, 0.1), (2, 3, 77, 203, 64, True, 0.3),
+])
+def test_backward_takes_the_models_strided_views(cuda, dtype, B, H, Tq, Tk, Dh, masked, rate):
+    """Gradients through the kernels when q, k and v are the head-split views
+    of [B, T, H*Dh] projections, as the model trains them."""
+    q, k, v, do, kv_valid = _attn_case(cuda, B, H, Tq, Tk, Dh, masked, dtype)
+    leaves = [x.transpose(1, 2).contiguous().flatten(2).requires_grad_() for x in (q, k, v)]  # [B, T, H*Dh]
+    out = flash_attention(*(_split_heads(x, H) for x in leaves), kv_valid, masked, rate, 55)
+    out.backward(do)
+    want = flash_attention_bwd_reference(q, k, v, do, kv_valid, masked, rate, 55)
+    scale = max(b.float().abs().max().item() for b in want)
+    for name, leaf, b in zip(("dq", "dk", "dv"), leaves, want):
+        a = _split_heads(leaf.grad, H)
+        assert (a.float() - b.float()).abs().max().item() <= GRAD_TOL[dtype] * scale, name
 
 
 @pytest.mark.cuda

@@ -199,54 +199,99 @@ def test_zero_rate_is_no_dropout_and_seed_moves_the_mask():
     assert abs((m > 0).float().mean().item() - 0.5) < 0.05 and set(m.unique().tolist()) == {0.0, 2.0}
 
 
-def _emulate_kernels(q, k, v, do, kv_valid, causal, rate, seed, block_q, tile=64):
-    """The CUDA kernels' decomposition, in torch: the forward's online
-    softmax over 64-key tiles with its log-sum-exp; the backward's delta =
-    dO . O, dK/dV per 64-key tile over every 64-row q tile, dQ per q tile
-    over every key tile, P recomputed as exp(S - lse) and the mask read per
-    element by global row (attn_common.cuh)."""
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits; ties away from zero),
+    as cvt.rna.tf32.f32 and the kernels' integer rounding give it: add half
+    a TF32 ulp to the bits and clear the 13 low ones."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32).reshape(x.shape)
+
+
+def mm_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels form it for f32 inputs: each operand split as
+    big = tf32(x), small = tf32(x - big), the products small*big + big*small
+    first, then big*big (attn_common.cuh)."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b from one TF32 product: what a single pass would keep."""
+    return tf32_round(a) @ tf32_round(b)
+
+
+def _emulate_forward(q, k, v, logit, mult, mm, tile, split):
+    """The forward kernel's decomposition: the key tiles shared out among
+    ``split`` cluster blocks, each an online softmax over its tiles (P.V on
+    the dropped probabilities, the row sum on the undropped ones), the
+    partials combined in rank order as the cluster combines them; (out,
+    lse).  ``logit(s, qs, ks)`` applies the scale and masks to a tile."""
+    Tq, Tk = q.shape[2], k.shape[2]
+    n_kt = -(-Tk // tile)
+    qs = slice(0, Tq)
+    parts = []
+    for rank in range(split):
+        m = torch.full(q.shape[:3] + (1,), -float("inf"))
+        l = torch.zeros(q.shape[:3] + (1,))
+        acc = torch.zeros(q.shape)
+        for kt in range(rank * n_kt // split, (rank + 1) * n_kt // split):
+            ks = slice(kt * tile, (kt + 1) * tile)
+            s = logit(mm(q, k[:, :, ks].transpose(-1, -2)), qs, ks)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + mm(p * mult[..., ks], v[:, :, ks])
+            m = m_new
+        parts.append((m, l, acc))
+    mmax = torch.stack([m for m, _, _ in parts]).amax(0)
+    lsum = sum(l * torch.exp(m - mmax) for m, l, _ in parts)
+    out = sum(acc * (torch.exp(m - mmax) / lsum) for m, _, acc in parts)
+    return out, mmax + torch.log(lsum)
+
+
+def _emulate_kernels(q, k, v, do, kv_valid, causal, rate, seed, block_q, tile=64, mm=torch.matmul, split=1):
+    """The CUDA kernels' decomposition, in torch, with the products formed
+    by ``mm`` (exact f32, or the tensor cores' 3xTF32): the forward as
+    ``_emulate_forward``; the backward's delta = dO . O, then per key tile,
+    over every q tile, the transposed tiles S^T = K Q^T and dP^T = V dO^T
+    with P recomputed as exp(S - lse) and the mask read per element by
+    global row (attn_common.cuh), dK and dV accumulated, and the key tile's
+    dQ partial dS K; dQ the partials' sum in key-tile order."""
     B, H, Tq, Dh = q.shape
     Tk = k.shape[2]
     scale = 1.0 / Dh**0.5
-    bias = torch.zeros(B, 1, Tq, Tk)
+    valid_bias = torch.zeros(B, 1, 1, Tk)
     if kv_valid is not None:
-        bias = bias + torch.where(kv_valid[:, None, None] > 0, 0.0, -1e9)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q * scale, k) + bias
-    if causal:
-        logits = torch.where(torch.arange(Tk)[None] > torch.arange(Tq)[:, None] + Tk - Tq, -1e9, logits)
+        valid_bias = torch.where(kv_valid[:, None, None] > 0, 0.0, -1e9)
+    masked = torch.arange(Tk)[None] > torch.arange(Tq)[:, None] + Tk - Tq
+
+    def logit(s, qs, ks):  # scale, kv_valid adds -1e9, the causal rule replaces the logit with it
+        x = s * scale + valid_bias[..., ks]
+        return torch.where(masked[qs, ks], -1e9, x) if causal else x
+
+    T = lambda x: x.transpose(-1, -2)  # noqa: E731
     mult = flash_attn.dropout_mask(B, H, Tq, Tk, rate, seed, block_q) if rate > 0 else torch.ones(B, H, Tq, Tk)
-    m = torch.full((B, H, Tq, 1), -float("inf"))
-    l = torch.zeros(B, H, Tq, 1)
-    acc = torch.zeros(B, H, Tq, Dh)
-    for k0 in range(0, Tk, tile):
-        s = logits[..., k0:k0 + tile]
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        p = torch.exp(s - m_new)
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + (p * mult[..., k0:k0 + tile]) @ v[:, :, k0:k0 + tile]
-        m = m_new
-    out, lse = acc / l, m + torch.log(l)
+    out, lse = _emulate_forward(q, k, v, logit, mult, mm, tile, split)
     delta = (do * out).sum(-1, keepdim=True)
-    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    for k0 in range(0, Tk, tile):  # dK/dV kernel: one block per key tile
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    dq_part = torch.zeros((-(-Tk // tile),) + q.shape)  # one dQ partial per key tile
+    for kb, k0 in enumerate(range(0, Tk, tile)):  # one block per key tile, on the transposed tiles
         ks = slice(k0, k0 + tile)
         for q0 in range(0, Tq, tile):
             qs = slice(q0, q0 + tile)
-            p = torch.exp(logits[:, :, qs, ks] - lse[:, :, qs])
-            mm = mult[:, :, qs, ks]
-            dp = do[:, :, qs] @ v[:, :, ks].transpose(-1, -2)
-            ds = p * (dp * mm - delta[:, :, qs])
-            dv[:, :, ks] += (p * mm).transpose(-1, -2) @ do[:, :, qs]
-            dk[:, :, ks] += ds.transpose(-1, -2) @ (q[:, :, qs] * scale)
-    for q0 in range(0, Tq, tile):  # dQ kernel: one block per q tile
-        qs = slice(q0, q0 + tile)
-        for k0 in range(0, Tk, tile):
-            ks = slice(k0, k0 + tile)
-            p = torch.exp(logits[:, :, qs, ks] - lse[:, :, qs])
-            dp = do[:, :, qs] @ v[:, :, ks].transpose(-1, -2)
-            dq[:, :, qs] += (p * (dp * mult[:, :, qs, ks] - delta[:, :, qs])) @ k[:, :, ks]
-    return out, dq * scale, dk, dv
+            p = torch.exp(logit(T(mm(k[:, :, ks], T(q[:, :, qs]))), qs, ks) - lse[:, :, qs])
+            mk = mult[:, :, qs, ks]
+            ds = p * (T(mm(v[:, :, ks], T(do[:, :, qs]))) * mk - delta[:, :, qs])
+            dv[:, :, ks] += mm(T(p * mk), do[:, :, qs])
+            dk[:, :, ks] += mm(T(ds), q[:, :, qs])
+            dq_part[kb, :, :, qs] = mm(ds, k[:, :, ks])
+    dq = dq_part[0]
+    for part in dq_part[1:]:  # the dQ kernel: the partials' sum in key-tile order
+        dq = dq + part
+    return out, dq * scale, dk * scale, dv
 
 
 @pytest.mark.parametrize("Tq,Tk,causal,rate,block_q", [(150, 200, True, 0.3, 16), (70, 130, False, 0.1, None),
@@ -263,6 +308,85 @@ def test_kernel_decomposition_matches_plain(Tq, Tk, causal, rate, block_q):
     want = flash_attention_bwd_reference(q, k, v, do, kv_valid, causal, rate, 11, block_q)
     for name, a, b in zip("qkv", grads, want):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0, msg=f"d{name}")
+
+
+def test_tf32_round_keeps_ten_mantissa_bits_to_nearest():
+    x = torch.from_numpy(np.random.RandomState(0).randn(10000).astype(np.float32) * 100)
+    r = tf32_round(x)
+    assert not (r.view(torch.int32) & 0x1FFF).any()
+    assert ((r - x).abs() <= x.abs() * 2.0**-11).all()
+    # a tie (exactly half a TF32 ulp) goes away from zero
+    tie = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11)], dtype=torch.float32)
+    assert tf32_round(tie).tolist() == [1.0 + 2.0**-10, -(1.0 + 2.0**-10)]
+
+
+EMU_CASES = [  # (Tq, Tk, causal, rate, block_q, tile, split): ragged tiles, masks, dropout, every split
+    (150, 200, True, 0.3, 16, 32, 2),
+    (70, 130, False, 0.1, None, 64, 4),
+    (64, 96, False, 0.0, None, 32, 1),
+]
+
+
+@pytest.mark.parametrize("Tq,Tk,causal,rate,block_q,tile,split", EMU_CASES)
+def test_tensor_core_emulation_matches_plain_and_pallas(Tq, Tk, causal, rate, block_q, tile, split):
+    """3xTF32 products and the cluster's split-KV combine give the plain
+    versions' results at the card's bars (outputs 1e-5, gradients 2e-5 of
+    their largest element) and the JAX Pallas kernel's in interpret mode at
+    this file's bars (2e-5 without dropout; 3e-5 / 5e-5 with it)."""
+    B, H, Dh, seed = 2, 2, 16, 11
+    q, k, v = _qkv(B, H, Tq, Tk, Dh, seed=Tq)
+    do = np.random.RandomState(6).randn(B, H, Tq, Dh).astype(np.float32)
+    kv_valid = (np.arange(Tk)[None] < np.array([[Tk - 30], [Tk]])).astype(np.float32)
+    t = [torch.from_numpy(x) for x in (q, k, v, do, kv_valid)]
+    out, *grads = _emulate_kernels(*t, causal, rate, seed, block_q, tile, mm_tf32x3, split)
+    torch.testing.assert_close(out, flash_attention_reference(t[0], t[1], t[2], t[4], causal, rate, seed, block_q),
+                               atol=1e-5, rtol=0)
+    want = flash_attention_bwd_reference(*t[:4], t[4], causal, rate, seed, block_q)
+    scale = max(w.abs().max().item() for w in want)
+    for name, a, b in zip("qkv", grads, want):
+        torch.testing.assert_close(a, b, atol=2e-5 * scale, rtol=0, msg=f"d{name}")
+
+    def jfn(q, k, v):
+        return jax_flash(q, k, v, jnp.asarray(kv_valid), jnp.array([seed], jnp.int32), causal, rate, block_q,
+                         True, "hash")
+
+    jout, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v)))
+    jgrads = vjp(jnp.asarray(do))
+    out_tol, grad_tol = (3e-5, 5e-5) if rate > 0 else (2e-5, 2e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=out_tol)
+    for name, a, b in zip("qkv", grads, jgrads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=grad_tol, err_msg=f"d{name}")
+
+
+def test_3xtf32_holds_f32_accuracy_at_the_face_shape():
+    """One head at the face denoiser's cross-attention (Tq 600, Tk 2000, Dh
+    128), the kernel's tiling (32-key tiles, split 4) against float64:
+    3xTF32 products stay well under the 1e-5 bar; one TF32 product does
+    not, which is why the kernels take three."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 1, 600, 2000, 128, seed=9))
+    exact = torch.softmax(q.double() @ k.double().transpose(-1, -2) / 128**0.5, -1) @ v.double()
+    logit = lambda s, qs, ks: s / 128**0.5  # noqa: E731
+    ones = torch.ones(1, 1, 600, 2000)
+    x3 = _emulate_forward(q, k, v, logit, ones, mm_tf32x3, 32, 4)[0]
+    x1 = _emulate_forward(q, k, v, logit, ones, mm_tf32, 32, 4)[0]
+    err3, err1 = ((x.double() - exact).abs().max().item() for x in (x3, x1))
+    assert err3 < 1e-6 < 1e-5 < err1, (err3, err1)
+
+
+def test_flash_attention_takes_the_models_strided_views_on_the_cpu():
+    """The head-split views of [B, T, H*Dh] projections (models/blocks.py:
+    _split), q alone and k, v as slices of one stacked projection, give the
+    contiguous inputs' result exactly."""
+    rng = np.random.RandomState(2)
+    B, H, Dh, Tq, Tk = 2, 3, 16, 20, 45
+    split = lambda x: x.unflatten(-1, (H, -1)).transpose(1, 2)  # noqa: E731
+    q = split(torch.from_numpy(rng.randn(B, Tq, H * Dh).astype(np.float32)))
+    kv = torch.from_numpy(rng.randn(B, Tk, 2 * H * Dh).astype(np.float32))
+    k, v = split(kv[..., : H * Dh]), split(kv[..., H * Dh :])
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    got = flash_attention(q, k, v, causal=True)
+    torch.testing.assert_close(got, flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=True),
+                               atol=0, rtol=0)
 
 
 def test_autograd_on_the_cpu_launches_no_kernel():

@@ -269,6 +269,39 @@ def test_training_losses_match_jax(predict, lambda_vel):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=2e-5, atol=2e-5, err_msg=k)
 
 
+def test_velocity_loss_is_masked_by_lengths_not_by_missing_frames():
+    """A face-style batch: sample 0 has frames 90-99 missing (``mask`` 0)
+    inside its valid length, sample 1 is 100 frames long.  With lambda_vel
+    > 0 the step's loss is JAX ``training_losses`` (diffusion/losses.py:89)
+    with ``vel_mask=`` the validity mask from ``lengths`` passed explicitly,
+    within 1e-5 relative, and not the loss whose velocity term takes
+    ``mask`` (the JAX train step's behaviour)."""
+    pm = _port_model(seed=3)
+    b = _batch()
+    b["mask"][0, 90:100] = 0.0
+    b["motion"] = b["motion"] * b["mask"][..., None]
+    lengths = np.array([T, 100], np.int32)
+    b["lengths"] = lengths
+    t = np.array([37, 912])
+    noise = np.random.RandomState(5).randn(2, T, 104).astype(np.float32)
+    sched = make_schedule().to_device("cpu")
+    tb = _torch_batch(b)
+    with torch.no_grad():  # the step's model output, before its update
+        xt = gaussian.q_sample(sched, tb["motion"], torch.from_numpy(t), torch.from_numpy(noise))
+        out = pm.eval()(xt, torch.from_numpy(t), tb["audio"], tb["keyframes"], tb["keyframe_valid"],
+                        cond_drop_prob=0.0)
+    dcfg = DiffusionConfig(cond_drop_prob=0.0, lambda_vel=0.5)
+    metrics, _ = diffusion_train_step(TrainState(pm, TrainConfig(lr=LR)), sched, dcfg, tb, t=torch.from_numpy(t),
+                                      noise=torch.from_numpy(noise))
+    valid = (np.arange(T)[None] < lengths[:, None]).astype(np.float32)[..., None]
+    args = (j_make_schedule("cosine", 1000), "xstart", _np(out), b["motion"], _np(xt), jnp.asarray(t, jnp.int32),
+            b["mask"][..., None])
+    want = float(j_losses.training_losses(*args, lambda_vel=0.5, vel_mask=valid)["loss"].mean())
+    jax_step = float(j_losses.training_losses(*args, lambda_vel=0.5)["loss"].mean())
+    assert abs(metrics["loss"] - want) <= 1e-5 * abs(want)
+    assert abs(jax_step - want) > 1e-3 * abs(want)  # the two masks give different losses here
+
+
 def test_loss_second_moment_sampler_matches_jax():
     T_, H = 6, 3
     js, ps = j_tsample.LossSecondMomentState.init(T_, H), tsample.LossSecondMomentState.init(T_, H)
