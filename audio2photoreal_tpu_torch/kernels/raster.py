@@ -30,6 +30,22 @@ NAME = "raster_fwd"
 SOURCES = ("raster.cu",)
 # elements per [B, chunk, h, w] temporary of the plain version: 64 MB in f32
 _REFERENCE_ELEMS = 1 << 24
+_LAYOUT_LEN = 18  # csrc/raster.cu:raster_layout's out[]
+
+
+class Layout(NamedTuple):
+    """csrc/raster.cu's worklist layout for one call's shapes (``layout``)."""
+
+    tile: int  # a tile is tile x tile pixels, one block
+    small_tiles: int  # a face reaching more tiles is listed in the coarse bins
+    stage: int  # face records in one shared-memory stage
+    max_bins: int  # coarse bins per frame, at most
+    ntx: int  # tiles per row
+    nty: int  # tiles per column
+    bin_tiles: int  # a coarse bin is bin_tiles x bin_tiles tiles
+    nbx: int  # bins per row
+    nbins: int  # bins per frame
+    offsets: Tuple[int, ...]  # byte offsets of the scratch arrays (Scratch's order), then its size
 
 
 class RasterOut(NamedTuple):
@@ -39,14 +55,31 @@ class RasterOut(NamedTuple):
     uv: Optional[torch.Tensor] = None  # [B, H, W, 2] f32, when face_uv was given
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of csrc/raster.cu."""
+    lib.raster_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 6
+    lib.raster_fwd.restype = ctypes.c_int
+    lib.raster_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.raster_scratch_bytes.restype = ctypes.c_longlong
+    lib.raster_layout.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.raster_layout.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """Build (at first use) and bind the kernel library."""
-    lib = load_library(NAME, SOURCES)
-    fn = lib.raster_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
-    fn.restype = ctypes.c_int
-    return lib
+    return bind(load_library(NAME, SOURCES))
+
+
+def layout(B: int, F: int, height: int, width: int) -> Layout:
+    """The kernel's tiles, coarse bins and scratch arrays for these shapes,
+    as the library computes them (builds it)."""
+    out = (ctypes.c_longlong * _LAYOUT_LEN)()
+    err = library().raster_layout(B, F, height, width, out)
+    if err != 0:
+        raise ValueError(f"no raster layout for B={B} F={F} H={height} W={width}: cudaError_t {err}")
+    return Layout(*out[:9], offsets=tuple(out[9:]))
 
 
 def _corners(pix_verts: torch.Tensor, depth: torch.Tensor, faces: torch.Tensor):
@@ -138,6 +171,71 @@ def rasterize_reference(
     return RasterOut(best_f, best_b if emit_barys else None, best_z, uv)
 
 
+class Scratch(NamedTuple):
+    """Views of a kernel call's device scratch (csrc/raster.cu's head note)."""
+
+    rec: torch.Tensor  # [B, F, 16] f32 face records
+    rect: torch.Tensor  # [B, F, 4] i32 tile rectangles: first, last column; first, last row
+    tile_count: torch.Tensor  # [B, T] i32 faces listed per tile
+    bin_count: torch.Tensor  # [B, nbins] i32 large faces per coarse bin
+    start: torch.Tensor  # [B, T] i32 each tile's list in tile_list
+    end: torch.Tensor  # [B, T] i32
+    tile_list: torch.Tensor  # [B * F * small_tiles] i32
+    bin_list: torch.Tensor  # [B, nbins, F] i32
+
+
+def scratch_views(buf: torch.Tensor, B: int, F: int, height: int, width: int) -> Scratch:
+    """The arrays of ``_launch``'s scratch buffer, where the library put them."""
+    g = layout(B, F, height, width)
+    T = g.ntx * g.nty
+    shapes = ((B, F, 16), (B, F, 4), (B, T), (B, g.nbins), (B, T), (B, T), (B * F * g.small_tiles,),
+              (B, g.nbins, F))
+    views = []
+    for off, shape in zip(g.offsets, shapes):
+        n = 4 * int(torch.Size(shape).numel())
+        views.append(buf[off:off + n].view(torch.int32).view(shape))
+    views[0] = views[0].view(torch.float32)
+    return Scratch(*views)
+
+
+def _launch(pix_verts, depth, faces, height, width, face_uv, emit_barys) -> Tuple[RasterOut, torch.Tensor]:
+    """Launch on the current stream; returns the outputs and the uint8
+    scratch buffer (``scratch_views`` cuts it)."""
+    if pix_verts.device.type != "cuda":
+        raise ValueError(f"the raster kernel takes CUDA tensors, not {pix_verts.device}")
+    if pix_verts.dtype != torch.float32 or depth.dtype != torch.float32:
+        raise ValueError(f"pix_verts and depth must be float32; got {pix_verts.dtype}, {depth.dtype}")
+    if face_uv is not None and face_uv.dtype != torch.float32:
+        raise ValueError(f"face_uv must be float32; got {face_uv.dtype}")
+    B, V, F = pix_verts.shape[0], pix_verts.shape[1], faces.shape[0]
+    if (B * height * width >= 2**31 or B * F * 16 >= 2**31 or B * V >= 2**31
+            or max(height, width) > 2**24):
+        raise ValueError(f"too large for int32 indexing: B={B} V={V} H={height} W={width} F={F}")
+    dev = pix_verts.device
+    pix_verts, depth, faces = pix_verts.contiguous(), depth.contiguous(), faces.long().contiguous()
+    if face_uv is not None:
+        face_uv = face_uv.contiguous()
+    lib = library()
+    nbytes = lib.raster_scratch_bytes(B, F, height, width)
+    if nbytes < 0:
+        raise ValueError(f"the raster kernel does not take B={B} F={F} H={height} W={width}")
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)  # the allocator aligns it to 512 bytes
+    face = torch.empty((B, height, width), dtype=torch.int32, device=dev)
+    dep = torch.empty((B, height, width), dtype=torch.float32, device=dev)
+    bary = torch.empty((B, height, width, 3), device=dev) if emit_barys else None
+    uv = torch.empty((B, height, width, 2), device=dev) if face_uv is not None else None
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    with torch.cuda.device(dev):
+        err = lib.raster_fwd(
+            ptr(pix_verts), ptr(depth), ptr(faces), ptr(face_uv), B, V, F, height, width, ptr(buf),
+            ptr(face), ptr(dep), ptr(bary), ptr(uv), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{NAME} launch failed: cudaError_t {err}")
+    launch_counts[NAME] += 1
+    return RasterOut(face, bary, dep, uv), buf
+
+
 def rasterize_cuda(
     pix_verts: torch.Tensor,
     depth: torch.Tensor,
@@ -148,43 +246,10 @@ def rasterize_cuda(
     emit_barys: bool = True,
 ) -> RasterOut:
     """Launch the kernels on the current stream (CUDA tensors, f32 coords):
-    the per-face setup, then the tile raster.  Faces whose corner indices
-    fall outside [0, V) never cover a pixel."""
-    if pix_verts.device.type != "cuda":
-        raise ValueError(f"the raster kernel takes CUDA tensors, not {pix_verts.device}")
-    if pix_verts.dtype != torch.float32 or depth.dtype != torch.float32:
-        raise ValueError(f"pix_verts and depth must be float32; got {pix_verts.dtype}, {depth.dtype}")
-    if face_uv is not None and face_uv.dtype != torch.float32:
-        raise ValueError(f"face_uv must be float32; got {face_uv.dtype}")
-    B, V, F = pix_verts.shape[0], pix_verts.shape[1], faces.shape[0]
-    if B * height * width >= 2**31 or B * F * 16 >= 2**31 or B * V >= 2**31:
-        raise ValueError(f"too large for int32 indexing: B={B} V={V} H={height} W={width} F={F}")
-    dev = pix_verts.device
-    pix_verts, depth, faces = pix_verts.contiguous(), depth.contiguous(), faces.long().contiguous()
-    if face_uv is not None:
-        face_uv = face_uv.contiguous()
-    # scratch for the setup kernel: per-face records and screen bboxes
-    rec = torch.empty((B, F, 16), device=dev)
-    bbox = torch.empty((B, F, 4), device=dev)
-    face = torch.empty((B, height, width), dtype=torch.int32, device=dev)
-    dep = torch.empty((B, height, width), dtype=torch.float32, device=dev)
-    bary = torch.empty((B, height, width, 3), device=dev) if emit_barys else None
-    uv = torch.empty((B, height, width, 2), device=dev) if face_uv is not None else None
-    fn = library().raster_fwd
-    with torch.cuda.device(dev):
-        err = fn(
-            pix_verts.data_ptr(), depth.data_ptr(), faces.data_ptr(),
-            face_uv.data_ptr() if face_uv is not None else None,
-            B, V, F, height, width, rec.data_ptr(), bbox.data_ptr(),
-            face.data_ptr(), dep.data_ptr(),
-            bary.data_ptr() if bary is not None else None,
-            uv.data_ptr() if uv is not None else None,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{NAME} launch failed: cudaError_t {err}")
-    launch_counts[NAME] += 1
-    return RasterOut(face, bary, dep, uv)
+    the per-face setup and binning, the per-frame scan, the list fill, then
+    the tile raster.  Faces whose corner indices fall outside [0, V) never
+    cover a pixel."""
+    return _launch(pix_verts, depth, faces, height, width, face_uv, emit_barys)[0]
 
 
 def rasterize(

@@ -14,7 +14,8 @@ exception and a nonzero exit.
    tensor-core instructions (HMMA / HGMMA) in each attention kernel's SASS
    (``cuobjdump --dump-sass``), which every kernel with products (the
    forward, the backward's dK/dV + dQ-partial kernel) must have, f32 and
-   bf16.
+   bf16; and the fused multiply-adds (FFMA) in the raster library's kernels,
+   of which the raster kernel must have none.
 3. kernel vs plain, attention: the CUDA attention kernel against its plain
    PyTorch version on the card, f32 and bf16, at the pose and face
    denoisers' shapes (Dh 64 and 128), the face cond-encoder's 1998 x 1998,
@@ -29,10 +30,17 @@ exception and a nonzero exit.
    the full image (1024x667) on the mesh_density=10 synthetic mesh (9,322
    faces) posed by random poses and projected by the synthetic rig's two
    cameras (render/assets.py:synthetic_rig, the body about 800 rows tall), at
-   frame batch 2 and 8 (the main path's), and on a small ragged case with
-   degenerate and depth-tied faces; face ids and coverage equal, depth / UV /
-   barycentrics within 1e-5.  Then frame batch 16, 24 and 32, kernel alone,
-   each frame equal to the batch-8 result for its pose.
+   frame batch 2 and 8 (the main path's), on the mesh_density=30 mesh (85,562
+   faces) at frame batch 2, on a small ragged case with degenerate and
+   depth-tied faces, and on a crowded tile (2,000 faces in one 16x16 tile, a
+   face over every tile, corners at +-1e30); face ids and coverage equal,
+   depth / UV / barycentrics within 1e-5, a rerun bit-identical.  Then the
+   85,562-face mesh at frame batch 8 and frame batch 16, 24 and 32 (each
+   frame equal to the batch-8 result for its pose), kernel alone.  Every row
+   has the bound (the function's (pixel, face) tests: each face's bbox
+   widened by one pixel, clipped to the image, ``bound_tests``), and, from one
+   more kernel call, the tests its worklists listed (``listed_tests``) and
+   its scratch bytes.
 5. slice parity: a full-width pose denoiser from ``--seed``, encode + cached
    CFG + DDIM-5 from one numpy x_T, on the card (with the kernel) against the
    CPU (plain attention), within 1e-3; then the same for the full-width face
@@ -118,7 +126,7 @@ HBM_BYTES_PER_S = 3.35e12
 # "tf32x3": the f32 attention kernels' products as three TF32 tensor-core
 # products each (attn_common.cuh), so 495 TFLOP/s of TF32 buys a third of that
 FLOP_PER_S = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
-RASTER_FLOPS_PER_TEST = 17  # csrc/raster.cu: 9 mul + 8 add/sub per listed (pixel, face)
+RASTER_FLOPS_PER_TEST = 17  # csrc/raster.cu: 9 mul + 8 add/sub per (pixel, face) test
 # (B, H, Tq, Tk, Dh, masked): self- and cross-attention of the pose and the
 # face denoiser under CFG with 2 samples, the face cond-encoder's
 # self-attention over the 1998 audio tokens of 2 samples, and a ragged
@@ -207,9 +215,9 @@ def phase_build() -> None:
              seconds=seconds, all_builds_wall_s=wall, ptxas=ptxas)
 
 
-def _sass_tensor_ops(lib: str) -> dict:
-    """{kernel (mangled): tensor-core instructions (HMMA / HGMMA)} in a
-    built library's SASS."""
+def _sass_counts(lib: str, op: str) -> dict:
+    """{kernel (mangled): instructions matching the regex ``op``} in a built
+    library's SASS."""
     import re
 
     from torch.utils.cpp_extension import CUDA_HOME
@@ -222,7 +230,7 @@ def _sass_tensor_ops(lib: str) -> dict:
         if m:
             name = m.group(1)
             counts[name] = 0
-        elif name and re.search(r"\bH(G)?MMA\b", line):
+        elif name and re.search(op, line):
             counts[name] += 1
     return counts
 
@@ -231,11 +239,14 @@ def phase_sass() -> None:
     """The tensor-core instructions in each attention kernel: every kernel
     with products must have some (the forward, and the backward's dK/dV
     kernel, which also forms the dQ partials); the backward's delta and dQ
-    kernels are reductions."""
-    from audio2photoreal_tpu_torch.kernels import build, flash_attn
+    kernels are reductions.  The raster kernel must have no fused f32
+    multiply-add (FFMA): its face ids equal the plain version's only because
+    every product and sum rounds on its own.  (The setup kernel's 1/det is a
+    correctly rounded division, whose Newton steps are FFMAs.)"""
+    from audio2photoreal_tpu_torch.kernels import build, flash_attn, raster
 
     for name, sources in ((flash_attn.NAME, flash_attn.SOURCES), (flash_attn.BWD_NAME, flash_attn.BWD_SOURCES)):
-        counts = _sass_tensor_ops(str(build.library_path(name, sources)))
+        counts = _sass_counts(str(build.library_path(name, sources)), r"\bH(G)?MMA\b")
         rows = {}
         for fn, n in counts.items():
             kind = next((k for k in ("attn_fwd_kernel", "attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
@@ -247,6 +258,12 @@ def phase_sass() -> None:
         missing = [k for k, n in rows.items() if n == 0 and not k.startswith(("attn_bwd_delta", "attn_bwd_dq"))]
         if missing or not rows:
             raise AssertionError(f"{name}: no tensor-core instruction in {missing or 'any kernel'}")
+    counts = _sass_counts(str(build.library_path(raster.NAME, raster.SOURCES)), r"\bFFMA\b")
+    rows = {next((k for k in ("raster_setup_kernel", "raster_scan_kernel", "raster_fill_kernel", "raster_kernel")
+                  if k in fn), fn): n for fn, n in counts.items()}
+    emit("sass", library=raster.NAME, ffma_instructions=rows)
+    if rows.get("raster_kernel", 1) != 0:
+        raise AssertionError(f"{raster.NAME}: raster_kernel has fused multiply-adds or is missing: {rows}")
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -262,6 +279,25 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters: int = 20) -> float:
+    """ms per replay of one call of ``fn`` captured in a CUDA graph: the
+    card's time for the call without the host's per-launch work.  A call
+    that synchronised with the host could not be captured."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = _time_ms(graph.replay, iters=iters)
+    del graph
+    return ms
 
 
 def _bound(nbytes: float, flops: float, dtype: str = "float32"):
@@ -354,35 +390,51 @@ def _raster_inputs(assets, cams, motion):
 
 
 def _raster_cost(pix, dep, faces, face_uv, H, W, emit_barys):
-    """(bytes, flops, tests) of one wrapper call on these inputs: vertices,
-    faces and corner UVs read once, every output plane written once; 17 f32
-    operations per (pixel, listed face).  A face is listed for a tile when
-    its screen bbox touches the tile widened by one pixel and |det| > 1e-12,
-    as csrc/raster.cu lists them."""
+    """(bytes, flops, tests) of the function on these inputs: vertices, faces
+    and corner UVs read once, every output plane written once; 17 f32
+    operations per (pixel, face) test the function needs: the pixels of each
+    face's bbox widened by one pixel and clipped to the image, the window
+    where the plain version evaluates it.  Faces with |det| <= 1e-12, a
+    non-finite corner or no pixel in the image need none."""
     import torch
 
     tri = pix[:, faces.long()]  # [B, F, 3, 2]
     xs, ys = tri[..., 0], tri[..., 1]
-    (xa, xb, xc), (ya, yb, yc) = xs.unbind(-1), ys.unbind(-1)
-    det = (yb - yc) * (xa - xc) + (xc - xb) * (ya - yc)
-    live = (det.abs() > 1e-12) & torch.isfinite(xs).all(-1) & torch.isfinite(ys).all(-1)
-    bbox = torch.stack([xs.amin(-1), xs.amax(-1), ys.amin(-1), ys.amax(-1)], -1)  # [B, F, 4]
-    t = 16
-    nty, ntx = -(-H // t), -(-W // t)
-    x0 = torch.arange(ntx, device=pix.device, dtype=torch.float32) * t
-    y0 = torch.arange(nty, device=pix.device, dtype=torch.float32) * t
-    ox = ((bbox[:, None, :, 0] <= x0[None, :, None] + t) & (bbox[:, None, :, 1] >= x0[None, :, None] - 1)
-          & live[:, None]).float()
-    oy = ((bbox[:, None, :, 2] <= y0[None, :, None] + t) & (bbox[:, None, :, 3] >= y0[None, :, None] - 1)).float()
-    listed = torch.einsum("byf,bxf->byx", oy, ox)  # [B, nty, ntx] faces listed per tile
-    px = torch.clamp(W - x0, max=t)  # pixels per tile column / row inside the image
-    py = torch.clamp(H - y0, max=t)
-    tests = float((listed * py[None, :, None] * px[None, None, :]).sum())
+    det = (ys[..., 1] - ys[..., 2]) * (xs[..., 0] - xs[..., 2]) + (xs[..., 2] - xs[..., 1]) * (ys[..., 0] - ys[..., 2])
+    lo_x, hi_x, lo_y, hi_y = xs.amin(-1), xs.amax(-1), ys.amin(-1), ys.amax(-1)
+    need = ((det.abs() > 1e-12) & torch.isfinite(xs).all(-1) & torch.isfinite(ys).all(-1)
+            & (hi_x >= 0) & (lo_x <= W - 1) & (hi_y >= 0) & (lo_y <= H - 1))
+    span = lambda lo, hi, n: (hi.ceil() + 1).clamp(0, n - 1) - (lo.floor() - 1).clamp(0, n - 1) + 1  # noqa: E731
+    window = span(lo_x, hi_x, W).double() * span(lo_y, hi_y, H).double()
+    tests = float(torch.where(need, window, torch.zeros_like(window)).sum())
     B = pix.shape[0]
     per_pixel = 4 + 4 + (8 if face_uv is not None else 0) + (12 if emit_barys else 0)
     inputs = pix.numel() * 4 + dep.numel() * 4 + faces.numel() * faces.element_size()
     inputs += face_uv.numel() * 4 if face_uv is not None else 0
     return inputs + B * H * W * per_pixel, tests * RASTER_FLOPS_PER_TEST, tests
+
+
+def _listed_tests(buf, B, F, H, W) -> float:
+    """The (pixel, face) tests one kernel call listed: every in-image pixel of
+    every tile of each face's rectangle, as the setup kernel wrote it into
+    the call's scratch ``buf`` (a large face is tested at the tiles of its
+    rectangle too)."""
+    import torch
+
+    from audio2photoreal_tpu_torch.kernels import raster
+
+    g = raster.layout(B, F, H, W)
+    r = raster.scratch_views(buf, B, F, H, W).rect.long()  # [B, F, 4]; (0, -1, 0, -1) where no tile
+
+    def pixels_before(n, size):  # pixels in the image before tile k, k = 0..n
+        per_tile = torch.clamp(size - torch.arange(n, device=buf.device) * g.tile, max=g.tile)
+        return torch.cat([per_tile.new_zeros(1), per_tile.cumsum(0)])
+
+    cx, cy = pixels_before(g.ntx, W), pixels_before(g.nty, H)
+    reach = r[..., 0] <= r[..., 1]
+    px = cx[(r[..., 1] + 1).clamp_min(0)] - cx[r[..., 0]]
+    py = cy[(r[..., 3] + 1).clamp_min(0)] - cy[r[..., 2]]
+    return float((px * py * reach).sum())
 
 
 def _raster_compare(got, want) -> dict:
@@ -428,6 +480,49 @@ def _ragged_case(device):
     return t(pix), t(dep), t(faces.astype(np.int64)), face_uv, H, W
 
 
+def crowded_tile_arrays(n_faces: int = 2000):
+    """(pix, dep, faces, face_uv, H, W) in numpy: n_faces tiny faces in tile
+    (1, 1) of a 48 x 48 image (more faces than one shared-memory stage
+    holds), one face over every tile behind them, and faces with corners at
+    +-1e30 or entirely off screen; frame 1 lists the triangles the other way
+    round."""
+    import numpy as np
+
+    rng = np.random.RandomState(12)
+    corner = rng.rand(n_faces, 1, 2) * 14 + 16.5
+    tris = np.concatenate([
+        corner + rng.rand(n_faces, 3, 2) * 3 - 1.5,
+        [[[-100, -100], [200, -100], [-100, 200]],
+         [[10, 10], [1e30, 12], [12, 30]], [[-1e30, -1e30], [20, 5], [5, 20]],
+         [[1e30, 1e30], [2e30, 1e30], [1e30, 3e30]], [[-500, 10], [-300, 20], [-400, 40]]],
+    ]).astype(np.float32)
+    pix = np.stack([tris.reshape(-1, 2), tris[::-1].reshape(-1, 2)])
+    dep = (rng.rand(2, pix.shape[1]) * 4 + 0.5).astype(np.float32)
+    dep[:, 3 * n_faces:3 * n_faces + 3] = 9.0
+    faces = np.arange(pix.shape[1]).reshape(-1, 3)
+    face_uv = rng.rand(len(faces), 3, 2).astype(np.float32)
+    return pix, dep, faces.astype(np.int64), face_uv, 48, 48
+
+
+def _crowded_case(device):
+    import torch
+
+    pix, dep, faces, face_uv, H, W = crowded_tile_arrays()
+    return (*(torch.from_numpy(a).to(device) for a in (pix, dep, faces, face_uv)), H, W)
+
+
+def _raster_numbers(pix, dep, fc, fuv, h, w, barys) -> dict:
+    """The bound of the function on these inputs, and the tests and scratch
+    bytes of one more kernel call on them."""
+    from audio2photoreal_tpu_torch.kernels import raster
+
+    nbytes, flops, tests = _raster_cost(pix, dep, fc, fuv, h, w, barys)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    _, buf = raster._launch(pix, dep, fc, h, w, fuv, barys)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, bound_tests=tests, bytes=nbytes,
+                listed_tests=_listed_tests(buf, pix.shape[0], fc.shape[0], h, w), scratch_bytes=buf.numel())
+
+
 def phase_raster(seed: int) -> dict:
     import numpy as np
     import torch
@@ -445,47 +540,63 @@ def phase_raster(seed: int) -> dict:
     rng = np.random.RandomState(seed)
     motion = torch.from_numpy((rng.randn(4, 104) * 0.3).astype(np.float32)).to("cuda")
     pix8, dep8 = _raster_inputs(assets, cams, motion)  # [8, V, 2]: 4 poses x 2 cameras
+    # the mesh_density=30 body (85,562 faces) in the same poses; its UV atlas
+    # size does not reach the raster
+    dense = make_synthetic_assets(RendererConfig(uv_size=256, upscale_size=512), seed=seed,
+                                  mesh_density=30).to("cuda")
+    dfaces, dface_uv = dense.geo.faces, dense.geo.uv_coords[dense.geo.uv_faces].contiguous()
+    dpix8, ddep8 = _raster_inputs(dense, cams, motion)
 
     summary = {}
-    ragged = _ragged_case("cuda")
+    ragged, crowded = _ragged_case("cuda"), _crowded_case("cuda")
     cases = [("ragged_ties", *ragged[:4], ragged[4], ragged[5], True),
+             ("crowded_tile", *crowded, True),
              ("full_b2", pix8[:2], dep8[:2], faces, face_uv, H, W, True),
-             ("full_b8", pix8, dep8, faces, face_uv, H, W, False)]
+             ("full_b8", pix8, dep8, faces, face_uv, H, W, False),
+             ("full_b2_dense", dpix8[:2], ddep8[:2], dfaces, dface_uv, H, W, False)]
     results = {}
     for name, pix, dep, fc, fuv, h, w, barys in cases:
         got = raster.rasterize_cuda(pix, dep, fc, h, w, fuv, emit_barys=barys)
         want = raster.rasterize_reference(pix, dep, fc, h, w, fuv, emit_barys=barys)
+        again = raster.rasterize_cuda(pix, dep, fc, h, w, fuv, emit_barys=barys)
         torch.cuda.synchronize()
         cmp = _raster_compare(got, want)
+        cmp["rerun_identical"] = all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+        cmp["ok"] = cmp["ok"] and cmp["rerun_identical"]
         results[name] = got
         B = pix.shape[0]
         call = lambda: raster.rasterize_cuda(pix, dep, fc, h, w, fuv, emit_barys=barys)  # noqa: E731
         plain = lambda: raster.rasterize_reference(pix, dep, fc, h, w, fuv, emit_barys=barys)  # noqa: E731
-        # in turns: plain, kernel, kernel, plain (the plain version is slow: one call each)
-        p1 = _time_ms(plain, iters=1, warmup=1)
+        # in turns: plain, kernel, kernel, plain (the plain version is slow: one
+        # call each, warmed up by the comparison above)
+        p1 = _time_ms(plain, iters=1, warmup=0)
         k1 = _time_ms(call)
         k2 = _time_ms(call)
         p2 = _time_ms(plain, iters=1, warmup=0)
-        nbytes, flops, tests = _raster_cost(pix, dep, fc, fuv, h, w, barys)
-        bound_ms, bound_by = _bound(nbytes, flops)
         row = dict(case=name, B=B, H=h, W=w, faces=int(fc.shape[0]), emit_barys=barys, **cmp,
-                   tol=RASTER_TOL, ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None,
-                   bound_ms=bound_ms, bound_by=bound_by, listed_tests=tests, bytes=nbytes)
+                   tol=RASTER_TOL, ms=(k1 + k2) / 2, graph_ms=_graph_ms(call), plain_ms=(p1 + p2) / 2,
+                   library_ms=None, **_raster_numbers(pix, dep, fc, fuv, h, w, barys))
         emit("kernel_vs_plain", kernel=raster.NAME, **row)
         if not cmp["ok"]:
             raise AssertionError(f"{raster.NAME} disagrees with its plain version: {row}")
         if name == "full_b8":
             summary = row
+    # the dense mesh at the main path's frame batch, kernel alone
+    call = lambda: raster.rasterize_cuda(dpix8, ddep8, dfaces, H, W, dface_uv, emit_barys=False)  # noqa: E731
+    emit("raster_alone", case="full_b8_dense", B=8, H=H, W=W, faces=int(dfaces.shape[0]), ms=_time_ms(call),
+         graph_ms=_graph_ms(call), **_raster_numbers(dpix8, ddep8, dfaces, dface_uv, H, W, False))
     # frame batches the TPU kernel could not run, kernel alone: frame i is pose i % 8
     ref = results["full_b8"]
     for B in (16, 24, 32):
         idx = torch.arange(B, device="cuda") % 8
-        got = raster.rasterize_cuda(pix8[idx], dep8[idx], faces, H, W, face_uv, emit_barys=False)
+        pb, db = pix8[idx], dep8[idx]
+        call = lambda: raster.rasterize_cuda(pb, db, faces, H, W, face_uv, emit_barys=False)  # noqa: E731
+        got = call()
         torch.cuda.synchronize()
         same = all(torch.equal(getattr(got, k), getattr(ref, k)[idx]) for k in ("face_index", "depth", "uv"))
-        ms = _time_ms(lambda: raster.rasterize_cuda(pix8[idx], dep8[idx], faces, H, W, face_uv,
-                                                     emit_barys=False), iters=10)
-        emit("raster_batch", B=B, H=H, W=W, frames_equal_batch8=same, ms=ms, ms_per_frame=ms / B)
+        ms = _time_ms(call, iters=10)
+        emit("raster_batch", B=B, H=H, W=W, frames_equal_batch8=same, ms=ms, ms_per_frame=ms / B,
+             graph_ms=_graph_ms(call, iters=10), **_raster_numbers(pb, db, faces, face_uv, H, W, False))
         if not same:
             raise AssertionError(f"frame batch {B}: frames differ from the batch-8 result")
     return summary
@@ -1265,6 +1376,7 @@ def main() -> None:
          **{k: bwd[k] for k in attn_keys}, **tc(bwd)},
         {"name": raster.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/raster.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas_raster.py:143", "launches": launches[raster.NAME],
+         "shape": [ras[k] for k in ("B", "H", "W", "faces")], "graph_ms": ras["graph_ms"],
          **{k: ras[k] for k in keys}},
         {"name": display_pack.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/display_pack.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas/display_pack.py:56", "launches": launches[display_pack.NAME],

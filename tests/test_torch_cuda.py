@@ -26,6 +26,8 @@ from audio2photoreal_tpu_torch.kernels.flash_attn import (
 )
 from audio2photoreal_tpu_torch.models.film_transformer import CondTokens, FiLMDenoiser
 from audio2photoreal_tpu_torch.render.geometry import project_points
+from chip_smoke import crowded_tile_arrays
+import raster_emulation  # tests/raster_emulation.py
 
 
 @pytest.fixture
@@ -274,11 +276,9 @@ def _raster_equal(got, want):
             assert (a - b).abs().max().item() <= RASTER_TOL
 
 
-@pytest.fixture(scope="module")
-def mesh10():
-    """The mesh_density=10 synthetic body (9,322 faces) posed by 4 random
-    poses and seen by the synthetic rig's 2 cameras: [8, V] projected
-    vertices at 1024x667."""
+def _posed_mesh(mesh_density):
+    """The synthetic body at ``mesh_density`` posed by 4 random poses and seen
+    by the synthetic rig's 2 cameras: [8, V] projected vertices at 1024x667."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     import numpy as np
@@ -286,7 +286,8 @@ def mesh10():
     from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets, synthetic_rig
     from audio2photoreal_tpu_torch.render.mesh_vae import RendererConfig
 
-    assets = make_synthetic_assets(RendererConfig(uv_size=256, upscale_size=512), mesh_density=10).to("cuda")
+    assets = make_synthetic_assets(RendererConfig(uv_size=256, upscale_size=512),
+                                   mesh_density=mesh_density).to("cuda")
     rng = np.random.RandomState(0)
     verts = assets.lbs.pose(None, torch.from_numpy((rng.randn(4, 104) * 0.3).astype(np.float32)).to("cuda"))
     pix, dep = [], []
@@ -298,6 +299,28 @@ def mesh10():
     geo = assets.geo
     return dict(pix=torch.stack(pix, 1).flatten(0, 1).contiguous(), dep=torch.stack(dep, 1).flatten(0, 1).contiguous(),
                 faces=geo.faces, face_uv=geo.uv_coords[geo.uv_faces].contiguous(), H=1024, W=667)
+
+
+@pytest.fixture(scope="module")
+def mesh10():
+    """The mesh_density=10 synthetic body: 9,322 faces, the render's mesh."""
+    return _posed_mesh(10)
+
+
+@pytest.fixture(scope="module")
+def mesh30():
+    """The mesh_density=30 synthetic body: 85,562 faces."""
+    m = _posed_mesh(30)
+    assert m["faces"].shape[0] == 85_562
+    return m
+
+
+def _crowded_case(cuda):
+    """chip_smoke's crowded tile on the card: 2,000 faces in one tile, a face
+    over every tile, corners at +-1e30, faces off screen."""
+    pix, dep, faces, face_uv, H, W = crowded_tile_arrays()
+    t = lambda a: torch.from_numpy(a).to(cuda)  # noqa: E731
+    return t(pix), t(dep), t(faces), H, W, t(face_uv)
 
 
 @pytest.mark.cuda
@@ -344,6 +367,89 @@ def test_raster_kernel_runs_large_frame_batches(cuda, mesh10, B):
     torch.cuda.synchronize()
     for k in ("face_index", "depth", "uv"):
         assert torch.equal(getattr(got, k), getattr(ref, k)[idx])
+
+
+@pytest.mark.cuda
+def test_raster_kernel_matches_plain_on_a_crowded_tile(cuda):
+    pix, dep, faces, H, W, face_uv = _crowded_case(cuda)
+    args = (pix, dep, faces, H, W, face_uv, True)
+    got, buf = raster._launch(*args)
+    _raster_equal(got, raster.rasterize_reference(*args))
+    B, F = pix.shape[0], faces.shape[0]
+    scratch = raster.scratch_views(buf, B, F, H, W)
+    g = raster.layout(B, F, H, W)
+    tile = g.ntx + 1  # tile (1, 1)
+    assert (scratch.end - scratch.start)[:, tile].min().item() >= 2000 > 4 * g.stage
+    assert (got.face_index[:, 16:32, 16:32] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_raster_kernel_matches_plain_on_the_dense_mesh(cuda, mesh30):
+    """85,562 faces (mesh_density=30) at frame batch 2."""
+    m = mesh30
+    args = (m["pix"][:2], m["dep"][:2], m["faces"], m["H"], m["W"], m["face_uv"], False)
+    got = raster.rasterize_cuda(*args)
+    want = raster.rasterize_reference(*args)
+    _raster_equal(got, want)
+    assert 0.02 < (want.face_index >= 0).float().mean().item() < 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["crowded", "mesh10", "mesh30"])
+def test_raster_kernel_reruns_are_bit_identical(cuda, case, request):
+    if case == "crowded":
+        pix, dep, faces, H, W, face_uv = _crowded_case(cuda)
+    else:
+        m = request.getfixturevalue(case)
+        pix, dep, faces, H, W, face_uv = m["pix"], m["dep"], m["faces"], m["H"], m["W"], m["face_uv"]
+    first = raster.rasterize_cuda(pix, dep, faces, H, W, face_uv, True)
+    for _ in range(3):
+        again = raster.rasterize_cuda(pix, dep, faces, H, W, face_uv, True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["crowded", "mesh10"])
+def test_raster_kernel_lists_faces_by_their_tile_ranges(cuda, case, request):
+    """The setup's records and rectangles, each tile's list and each coarse
+    bin's list equal the numpy emulation's (tests/raster_emulation.py, which
+    the CPU tests hold to the plain version); lists in any order."""
+    import numpy as np
+
+    if case == "crowded":
+        pix, dep, faces, H, W, face_uv = _crowded_case(cuda)
+    else:
+        m = request.getfixturevalue(case)
+        pix, dep, faces, H, W, face_uv = m["pix"][:2], m["dep"][:2], m["faces"], m["H"], m["W"], m["face_uv"]
+    B, F = pix.shape[0], faces.shape[0]
+    _, buf = raster._launch(pix, dep, faces, H, W, face_uv, False)
+    got = raster.Scratch(*(a.cpu().numpy() for a in raster.scratch_views(buf, B, F, H, W)))
+    rec, rect, tiles, bins = raster_emulation.emulate_setup(
+        *(a.cpu().numpy() for a in (pix, dep, faces, face_uv)), H, W)
+    live = rect[..., 0] <= rect[..., 1]
+    np.testing.assert_array_equal(got.rect, rect)
+    np.testing.assert_array_equal(got.rec[live], rec[live])
+    for b in range(B):
+        for t, want in enumerate(tiles[b]):
+            assert got.tile_count[b, t] == got.end[b, t] - got.start[b, t] == len(want)
+            assert sorted(got.tile_list[got.start[b, t]:got.end[b, t]]) == want
+        for k, want in enumerate(bins[b]):
+            assert sorted(got.bin_list[b, k, :got.bin_count[b, k]]) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,H,W", [(8, 85_562, 1024, 667), (2, 2005, 48, 48), (1, 5, 1, 1), (2, 300, 61, 77),
+                                     (3, 64, 17, 300), (1, 10, 4000, 4000)])
+def test_raster_layout_matches_the_emulation(cuda, B, F, H, W):
+    """The library's constants, tile grid, coarse bins and scratch offsets
+    (csrc/raster.cu owns them) are the ones the CPU emulation models."""
+    g = raster.layout(B, F, H, W)
+    e = raster_emulation
+    assert (g.tile, g.small_tiles, g.stage, g.max_bins) == (e.TILE, e.SMALL_TILES, e.STAGE, e.MAX_BINS)
+    assert tuple(g[4:9]) == tuple(e.layout(H, W)) and g.nbins <= g.max_bins
+    assert g.offsets == e.scratch_offsets(B, F, H, W)
+    assert raster.library().raster_scratch_bytes(B, F, H, W) == g.offsets[-1]
 
 
 @pytest.mark.cuda

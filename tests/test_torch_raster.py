@@ -5,20 +5,37 @@ held to ``render/rasterizer.py:_rasterize_xla`` and to the TPU kernel
 ``ops/pallas_raster.py:rasterize_pallas`` run in interpret mode: coverage
 equal, face ids equal on >= 99.9% of covered pixels (edge pixels may flip
 where XLA contracts products into FMAs), depth / barycentrics / UV within
-1e-5 where the ids agree.  The CUDA kernel's face records and tile cull are
-checked through a numpy emulation of the kernel, which must equal the plain
-version exactly.  The kernel itself runs in ``tests/test_torch_cuda.py``.
+1e-5 where the ids agree.  The CUDA kernels' face records, tile rectangles,
+tile and coarse-bin worklists and shared-memory stages are checked through a
+numpy emulation (``tests/raster_emulation.py``), which must equal the plain
+version exactly and list every face that can win a pixel for that pixel's
+tile.  The kernels themselves run in ``tests/test_torch_cuda.py``, held to
+the same emulation.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from audio2photoreal_tpu.ops.pallas_raster import rasterize_pallas
 from audio2photoreal_tpu.render.rasterizer import _rasterize_xla
 from audio2photoreal_tpu_torch.kernels import launch_counts, raster
 from audio2photoreal_tpu_torch.render import rasterizer
+from chip_smoke import crowded_tile_arrays
+from raster_emulation import (  # tests/raster_emulation.py
+    MAX_BINS,
+    STAGE,
+    TILE,
+    emulate_kernel,
+    emulate_setup,
+    emulate_stages,
+    layout,
+    scratch_offsets,
+    tile_list,
+)
 
 TOL = 1e-5
 
@@ -103,80 +120,198 @@ def test_ties_go_to_the_lowest_face_id():
     np.testing.assert_array_equal(face, np.asarray(want.face_index)[0])
 
 
-def emulate_setup(pix, depth, faces, face_uv):
-    """numpy float32 emulation of csrc/raster.cu's setup kernel: each face's
-    record (xc, yc, yb-yc, xc-xb, yc-ya, xa-xc, 1/det, za, zb, zc, corner
-    UVs) and its screen bbox, empty where |det| <= 1e-12."""
-    tri = pix[:, faces]  # [B, F, 3, 2]
-    (xa, ya), (xb, yb), (xc, yc) = (tri[:, :, k].transpose(2, 0, 1) for k in range(3))
-    z = depth[:, faces]
-    a0, b0, a1, b1 = yb - yc, xc - xb, yc - ya, xa - xc
-    det = a0 * b1 + b0 * (ya - yc)
-    ok = np.abs(det) > np.float32(1e-12)
-    with np.errstate(divide="ignore"):
-        inv_det = np.where(ok, np.float32(1.0) / det, np.float32(0.0)).astype(np.float32)
-    uv = np.broadcast_to(face_uv.reshape(1, -1, 6), xa.shape + (6,))
-    rec = np.concatenate([np.stack([xc, yc, a0, b0, a1, b1, inv_det], -1), z, uv], -1)
-    xs, ys = tri[..., 0], tri[..., 1]
-    bbox = np.stack([xs.min(-1), xs.max(-1), ys.min(-1), ys.max(-1)], -1)
-    bbox[~ok] = [np.inf, -np.inf, np.inf, -np.inf]
-    return rec.astype(np.float32), bbox
-
-
-def emulate_kernel(pix, depth, faces, H, W, face_uv, tile=16):
-    """numpy float32 emulation of csrc/raster.cu: the setup kernel's records
-    and bboxes, tile cull with one pixel of margin, the same individually
-    rounded operations, (z, id) compare."""
-    rec, bbox = emulate_setup(pix, depth, faces, face_uv)
-    B = pix.shape[0]
-    face = np.full((B, H, W), -1, np.int32)
-    best = np.full((B, H, W), np.inf, np.float32)
-    uv = np.zeros((B, H, W, 2), np.float32)
+def edge_mesh():
+    """Faces whose bbox ends exactly one pixel outside tile 1 of a row or a
+    column (listed there) and one float32 step beyond (not listed)."""
     f32 = np.float32
-    for b in range(B):
-        for ty in range(0, H, tile):
-            for tx in range(0, W, tile):
-                ys, xs = np.mgrid[ty:ty + tile, tx:tx + tile].astype(np.float32)
-                bz = np.full(ys.shape, np.inf, np.float32)
-                bf = np.full(ys.shape, -1, np.int32)
-                bu = np.zeros(ys.shape + (2,), np.float32)
-                for f in range(len(faces)):
-                    x0, x1, y0, y1 = bbox[b, f]
-                    if not (x0 <= tx + tile and x1 >= tx - 1 and y0 <= ty + tile and y1 >= ty - 1):
-                        continue
-                    r = rec[b, f]
-                    dx, dy = xs - r[0], ys - r[1]
-                    w0 = (f32(r[2]) * dx + f32(r[3]) * dy) * f32(r[6])
-                    w1 = (f32(r[4]) * dx + f32(r[5]) * dy) * f32(r[6])
-                    w2 = (f32(1.0) - w0) - w1
-                    z = (w0 * r[7] + w1 * r[8]) + w2 * r[9]
-                    take = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (z > f32(1e-6)) & (
-                        (z < bz) | ((z == bz) & (f < bf)))
-                    bz = np.where(take, z, bz)
-                    bf = np.where(take, f, bf)
-                    for k in range(2):
-                        u = (w0 * r[10 + k] + w1 * r[12 + k]) + w2 * r[14 + k]
-                        bu[..., k] = np.where(take, u, bu[..., k])
-                h, w = min(tile, H - ty), min(tile, W - tx)
-                face[b, ty:ty + h, tx:tx + w] = bf[:h, :w]
-                best[b, ty:ty + h, tx:tx + w] = bz[:h, :w]
-                uv[b, ty:ty + h, tx:tx + w] = bu[:h, :w]
-    return face, best, uv
+    below, above = np.nextafter(f32(15), f32(0)), np.nextafter(f32(32), f32(64))
+    tris = [
+        [(5, 5), (15, 5), (5, 12)],  # x_max = 15: reaches tile column 1
+        [(5, 5), (below, 5), (5, 12)],  # x_max just below 15: does not
+        [(32, 20), (40, 20), (32, 28)],  # x_min = 32: reaches tile column 1
+        [(above, 20), (40, 20), (above, 28)],  # x_min just above 32: does not
+        [(5, 5), (12, 5), (5, 15)],  # y_max = 15: reaches tile row 1
+        [(5, 5), (12, 5), (5, below)],
+        [(20, 32), (28, 32), (20, 40)],  # y_min = 32
+        [(20, above), (28, above), (20, 40)],
+        [(14, 14), (34, 15), (15, 34)],  # covers tile (1, 1)'s edges from inside
+    ]
+    pix = np.asarray(tris, np.float32).reshape(1, -1, 2)
+    depth = np.linspace(1.0, 2.0, pix.shape[1], dtype=np.float32)[None]
+    faces = np.arange(pix.shape[1]).reshape(-1, 3)
+    return pix, depth, faces, 40, 48
 
 
-@pytest.mark.parametrize("case", ["random", "ties"])
-def test_kernel_records_and_cull_equal_plain_exactly(case):
-    if case == "random":
+def huge_mesh():
+    """Corners at +-1e30 beside on-screen ones (finite det: huge slivers over
+    the image), faces entirely off screen on every side or at +-1e30, a
+    non-finite corner, and a few ordinary faces."""
+    pix = np.array([[
+        [10, 10], [1e30, 12], [12, 30],  # a sliver to x = +1e30
+        [-1e30, -1e30], [20, 5], [5, 20],  # a sliver from (-1e30, -1e30)
+        [-500, 10], [-300, 20], [-400, 40],  # off screen to the left
+        [10, 500], [30, 600], [20, 700],  # below
+        [1e30, 1e30], [2e30, 1e30], [1e30, 3e30],  # far off at +1e30
+        [-1e30, 5], [-2e30, 9], [-1e30, 30],  # far off at -1e30
+        [5, 5], [np.inf, 8], [9, 30],  # a non-finite corner
+        [2, 2], [40, 6], [8, 45],
+        [30, 30], [45, 33], [33, 47],
+    ]], np.float32)
+    depth = np.linspace(0.5, 3.0, pix.shape[1], dtype=np.float32)[None]
+    faces = np.arange(pix.shape[1]).reshape(-1, 3)
+    return pix, depth, faces, 49, 50
+
+
+def cover_all_mesh():
+    """One face over every tile (listed in every coarse bin) above random
+    faces, and one behind them."""
+    H, W = 70, 90
+    pix, depth, faces, _ = random_mesh(11, H, W, B=1, n_verts=30, n_faces=40)
+    big = np.array([[[-100, -100], [4 * W, -100], [-100, 4 * H], [-50, -60], [2 * W, -60], [-50, 2 * H]]],
+                   np.float32)
+    pix = np.concatenate([pix, big], 1)
+    depth = np.concatenate([depth, [[0.2, 0.2, 0.2, 9.0, 9.0, 9.0]]], 1).astype(np.float32)
+    faces = np.concatenate([faces, [[30, 31, 32], [33, 34, 35]]])
+    return pix, depth, faces, H, W
+
+
+def _case(name):
+    if name == "random":
         pix, depth, faces, face_uv = random_mesh(4, 37, 45, n_faces=50)
-        H, W = 37, 45
-    else:
+        return pix, depth, faces, face_uv, 37, 45
+    if name == "crowded":
+        return crowded_tile_arrays()
+    if name == "ties":
         (pix, depth, faces), H, W = tie_mesh(), 31, 33
-        face_uv = np.random.RandomState(5).rand(len(faces), 3, 2).astype(np.float32)
-    face, dep, uv = emulate_kernel(pix, depth, faces, H, W, face_uv)
+    else:
+        pix, depth, faces, H, W = {"edges": edge_mesh, "huge": huge_mesh, "cover_all": cover_all_mesh}[name]()
+    face_uv = np.random.RandomState(5).rand(len(faces), 3, 2).astype(np.float32)
+    return pix, depth, faces, face_uv, H, W
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "edges", "huge", "cover_all", "crowded", "shuffled"])
+def test_kernel_records_and_cull_equal_plain_exactly(case):
+    pix, depth, faces, face_uv, H, W = _case("random" if case == "shuffled" else case)
+    face, dep, uv = emulate_kernel(pix, depth, faces, H, W, face_uv, order_seed=13 if case == "shuffled" else None)
     want = _port(pix, depth, faces, H, W, face_uv)
     np.testing.assert_array_equal(face, want.face_index.numpy())
     np.testing.assert_array_equal(dep, want.depth.numpy())
     np.testing.assert_array_equal(uv, want.uv.numpy())
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "edges", "huge", "cover_all", "crowded"])
+def test_tile_ranges_equal_the_emulated_setup(case):
+    """The emulated setup's tile rectangles are the earlier sweep's rule
+    evaluated exactly: tile t of a row is reached when x_min <= TILE t + TILE
+    and x_max >= TILE t - 1, clamped to the image's tiles; no tile for a face
+    with |det| <= 1e-12 or a non-finite corner."""
+    pix, depth, faces, face_uv, H, W = _case(case)
+    rect = emulate_setup(pix, depth, faces, face_uv, H, W)[1]
+    g = layout(H, W)
+    tri = pix[:, faces].astype(np.float64)  # [B, F, 3, 2]
+    xs, ys = tri[..., 0], tri[..., 1]
+    with np.errstate(invalid="ignore", over="ignore"):
+        det = (ys[..., 1] - ys[..., 2]) * (xs[..., 0] - xs[..., 2]) + (xs[..., 2] - xs[..., 1]) * (
+            ys[..., 0] - ys[..., 2])
+        live = (np.abs(det.astype(np.float32)) > np.float32(1e-12)) & np.isfinite(tri).all((-1, -2))
+        first = lambda lo: np.maximum(np.ceil(lo / TILE) - 1, 0)  # noqa: E731
+        last = lambda hi, n: np.minimum(np.floor((hi + 1) / TILE), n - 1)  # noqa: E731
+        want = np.stack([first(xs.min(-1)), last(xs.max(-1), g.ntx), first(ys.min(-1)), last(ys.max(-1), g.nty)], -1)
+    want[~(live & (want[..., 0] <= want[..., 1]) & (want[..., 2] <= want[..., 3]))] = [0, -1, 0, -1]
+    np.testing.assert_array_equal(rect, want.astype(np.int64))
+
+
+def test_faces_at_tile_edges_are_listed_by_the_old_cull_rule():
+    pix, depth, faces, H, W = edge_mesh()
+    setup = emulate_setup(pix, depth, faces, np.zeros((len(faces), 3, 2), np.float32), H, W)
+    rect = setup[1][0]
+    assert rect[0, 1] == 1 and rect[1, 1] == 0  # x_max = 15 reaches column 1; just below does not
+    assert rect[2, 0] == 1 and rect[3, 0] == 2  # x_min = 32 reaches column 1; just above does not
+    assert rect[4, 3] == 1 and rect[5, 3] == 0
+    assert rect[6, 2] == 1 and rect[7, 2] == 2
+    for (tx, ty), yes, no in (((1, 0), 0, 1), ((1, 1), 2, 3), ((0, 1), 4, 5), ((1, 1), 6, 7)):
+        listed = tile_list(setup, H, W, 0, tx, ty)
+        assert yes in listed and no not in listed
+    assert 8 in tile_list(setup, H, W, 0, 1, 1)
+    # the rule of the earlier sweep, evaluated exactly: tile t reached when
+    # x_min <= 16 t + 16 and x_max >= 16 t - 1
+    g = layout(H, W)
+    xs, ys = pix[0, faces, 0].astype(np.float64), pix[0, faces, 1].astype(np.float64)
+    for f in range(len(faces)):
+        for ty in range(g.nty):
+            for tx in range(g.ntx):
+                old = (xs[f].min() <= 16 * tx + 16 and xs[f].max() >= 16 * tx - 1
+                       and ys[f].min() <= 16 * ty + 16 and ys[f].max() >= 16 * ty - 1)
+                assert (f in tile_list(setup, H, W, 0, tx, ty)) == old, (f, tx, ty)
+
+
+def test_huge_and_off_screen_faces_are_clamped():
+    pix, depth, faces, H, W = huge_mesh()
+    g = layout(H, W)
+    rect = emulate_setup(pix, depth, faces, np.zeros((len(faces), 3, 2), np.float32), H, W)[1][0]
+    assert (rect[:2] == [[0, g.ntx - 1, 0, 1], [0, 1, 0, 1]]).all()  # the slivers, clamped
+    assert (rect[2:7] == [0, -1, 0, -1]).all()  # off screen, at +-1e30, non-finite: no tile
+    assert rect[7:].min() >= 0 and rect[7:, [1, 3]].max() < max(g.ntx, g.nty)
+
+
+def test_one_face_over_every_tile_is_in_every_coarse_bin():
+    pix, depth, faces, face_uv, H, W = _case("cover_all")
+    setup = emulate_setup(pix, depth, faces, face_uv, H, W)
+    g = layout(H, W)
+    big = len(faces) - 2
+    assert g.nbins > 1 and all(big in lst and big + 1 in lst for lst in setup[3][0])
+    for ty in range(g.nty):
+        for tx in range(g.ntx):
+            assert big in tile_list(setup, H, W, 0, tx, ty)
+    want = _port(pix, depth, faces, H, W, face_uv)
+    assert (want.face_index.numpy() >= 0).all()
+
+
+def test_crowded_tile_takes_several_stages():
+    pix, depth, faces, face_uv, H, W = _case("crowded")
+    rec, rect, tiles, bins = emulate_setup(pix, depth, faces, face_uv, H, W)
+    g = layout(H, W)
+    # crowded_tile_arrays: 2,000 tiny faces in tile (1, 1), then 5 others;
+    # frame 1 lists the triangles the other way round
+    for b, tiny in enumerate((range(2000), range(5, 2005))):
+        own = tiles[b][g.ntx + 1]
+        stages = emulate_stages(rect, tiles, bins, g, b, 1, 1)
+        assert set(tiny) <= set(own) and len(own) > 4 * STAGE
+        assert sorted(f for s in stages for f in s) == sorted(own)
+        assert len(stages) >= 8 and max(len(s) for s in stages) == STAGE
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(seed=st.integers(0, 2**31 - 1), H=st.integers(1, 50), W=st.integers(1, 50),
+       n_faces=st.integers(1, 30), spread=st.sampled_from([1.0, 4.0, 1e3]))
+def test_every_winning_face_is_in_its_tiles_list(seed, H, W, n_faces, spread):
+    """The plain version's winner at every covered pixel is listed for the
+    pixel's tile: the worklists drop no face that can win."""
+    rng = np.random.RandomState(seed)
+    n_verts = 3 * n_faces
+    centre = rng.rand(n_faces, 1, 2) * [W + 20, H + 20] - 10
+    pix = (centre + (rng.rand(n_faces, 3, 2) - 0.5) * rng.rand(n_faces, 1, 1) * 40 * spread)
+    pix = pix.astype(np.float32).reshape(1, n_verts, 2)
+    depth = (rng.rand(1, n_verts) * 4 + 0.5).astype(np.float32)
+    faces = rng.randint(0, n_verts, (n_faces, 3)) if seed % 3 == 0 else np.arange(n_verts).reshape(-1, 3)
+    face_uv = np.zeros((n_faces, 3, 2), np.float32)
+    want = _port(pix, depth, faces, H, W).face_index.numpy()[0]
+    setup = emulate_setup(pix, depth, faces, face_uv, H, W)
+    t = TILE
+    for ty in range(-(-H // t)):
+        for tx in range(-(-W // t)):
+            winners = set(want[ty * t:(ty + 1) * t, tx * t:(tx + 1) * t].ravel()) - {-1}
+            assert winners <= set(tile_list(setup, H, W, 0, tx, ty)), (tx, ty)
+
+
+def test_scratch_stays_small_at_the_dense_mesh():
+    """Scratch of the 85,562-face mesh_density=30 mesh at frame batch 8 and
+    the render's 1024x667: well under 1 GB (the bins' F slots a face bound
+    it, not the tiles)."""
+    g = layout(1024, 667)
+    assert (g.ntx, g.nty) == (42, 64) and g.nbins <= MAX_BINS
+    assert scratch_offsets(8, 85_562, 1024, 667)[-1] < 160e6
+    assert scratch_offsets(8, 9_322, 1024, 667)[-1] < 20e6
 
 
 def test_dispatch_by_device():

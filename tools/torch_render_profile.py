@@ -15,8 +15,9 @@ up on one batch, then measures on random poses and face codes:
    display-space seam pass, projection + raster + texture sample;
 3. torch.profiler over ``--batches`` batches: device time by kernel (top 25),
    device busy ms, launches, the idle share against the unprofiled wall
-   time, and the device ms per launch of the raster wrapper's two kernels
-   (the per-face setup and the tile raster) and of the display kernel.
+   time, and the device ms per launch of the raster wrapper's four kernels
+   (the per-face setup and binning, the scan, the list fill and the tile
+   raster) and of the display kernel.
 Prints one JSON object and writes it to ``--out``.  TF32 is off, as in
 chip_smoke.py.
 """
@@ -124,6 +125,7 @@ def main() -> None:
         return sum(e.self_device_time_total for e in es) / 1e3 / max(sum(e.count for e in es), 1)
 
     raster_ms, setup_ms = per_launch_ms("raster_kernel"), per_launch_ms("raster_setup_kernel")
+    scan_ms, fill_ms = per_launch_ms("raster_scan_kernel"), per_launch_ms("raster_fill_kernel")
     display_ms = per_launch_ms("display_pack_kernel")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -133,6 +135,7 @@ def main() -> None:
         "stage_ms": stages, "device_busy_ms_per_batch": busy_us / 1e3 / args.batches,
         "idle_share": 1.0 - (busy_us / 1e3) / wall_ms, "device_launches_per_batch": launches / args.batches,
         "raster_kernel_device_ms_per_launch": raster_ms, "raster_setup_device_ms_per_launch": setup_ms,
+        "raster_scan_device_ms_per_launch": scan_ms, "raster_fill_device_ms_per_launch": fill_ms,
         "display_pack_device_ms_per_launch": display_ms,
         "top_device_kernels": top,
     }
