@@ -11,18 +11,25 @@ for a pose model, {keyframes}, motions as [B, C, 1, T]
 A checkpoint directory holds ``config.json`` (the JAX package's sidecar
 format) and ``model.pt``, a ``state_dict`` under the reference's names.
 
-A pose model takes the dataset's 1 fps ground-truth keyframes (guide-LM
-keyframing, ``--resume_trans/--resume_vq``, is not ported yet and raises); a
-face model takes none and its codes are inverse-normalised with the code
-statistics.  ``--plot`` renders each pose sample with the photoreal renderer
-(``--renderer_path``, a bundle of ``render/assets.py``) and the face codes of
-a face model's ``results.npy`` (``--face_codes``) made from the same audio.
+A pose model takes its 1 fps keyframes from the guide LM when given a guide
+and a VQ checkpoint (``--resume_trans`` / ``--resume_vq``, each a directory
+with ``config.json`` + ``model.pt``): ``GuideKeyframer`` samples
+keyframes x depth tokens by nucleus sampling (``--top_p``) and decodes them
+through the frozen residual VQ, and every keyframe counts as valid.  Without
+them it takes the dataset's ground-truth keyframes.  A face model takes none
+and its codes are inverse-normalised with the code statistics.  ``--plot``
+renders each pose sample with the photoreal renderer (``--renderer_path``, a
+bundle of ``render/assets.py``) and the face codes of a face model's
+``results.npy`` (``--face_codes``) made from the same audio.
 
 Everything runs on the card unless ``device`` says otherwise; without a
 card and without ``device`` it raises.
 
-x_T is drawn from a ``torch.Generator`` seeded with ``seed``, so for the
-same seed it differs from the JAX package's ``jax.random`` draw.
+x_T is drawn from a ``torch.Generator`` seeded with ``seed`` and the guide's
+Gumbel noise from one seeded with ``seed + 1``, so for the same seed both
+differ from the JAX package's ``jax.random`` draws.  ``use_ema`` samples from
+the EMA of the parameters that the trainer keeps in its latest checkpoint
+(``ckpt/step_N.pt``); without one it warns and takes ``model.pt``'s.
 """
 
 from __future__ import annotations
@@ -31,12 +38,20 @@ import argparse
 import dataclasses
 import os
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, load_config
+from audio2photoreal_tpu_torch.core.config import (
+    DataConfig,
+    DenoiserConfig,
+    DiffusionConfig,
+    GuideConfig,
+    VQConfig,
+    load_config,
+)
 from audio2photoreal_tpu_torch.core.device import resolve_device
 from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
 from audio2photoreal_tpu_torch.data.stats import DataStats
@@ -44,8 +59,12 @@ from audio2photoreal_tpu_torch.diffusion import sampling
 from audio2photoreal_tpu_torch.diffusion.respace import maybe_respaced
 from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn_cached
 from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
+from audio2photoreal_tpu_torch.models.guide import GuideTransformer
+from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
+from audio2photoreal_tpu_torch.train import checkpoints
 
 MODEL_FILE = "model.pt"
+CKPT_DIR = "ckpt"  # where apps/train_diffusion.py keeps its train states, the EMA among them
 
 
 def find_stats(person_dir: str) -> DataStats:
@@ -56,16 +75,62 @@ def find_stats(person_dir: str) -> DataStats:
     raise FileNotFoundError(f"no data stats under {person_dir}")
 
 
-def load_model(model_path: str, device) -> FiLMDenoiser:
-    """``config.json`` + ``model.pt`` -> an eval-mode FiLMDenoiser on ``device``."""
+def _state_dict(path: str) -> dict:
+    return torch.load(os.path.join(path, MODEL_FILE), map_location="cpu", weights_only=True)
+
+
+def _ema_params(model_path: str) -> Optional[dict]:
+    """The EMA of the parameters in the trainer's latest checkpoint, or None."""
+    ckpt_dir = os.path.join(model_path, CKPT_DIR)
+    last = checkpoints.latest_step(ckpt_dir)
+    if last is None:
+        return None
+    return torch.load(checkpoints.checkpoint_path(ckpt_dir, last), map_location="cpu", weights_only=True).get("ema")
+
+
+def load_model(model_path: str, device, use_ema: bool = False) -> FiLMDenoiser:
+    """``config.json`` + ``model.pt`` -> an eval-mode FiLMDenoiser on
+    ``device``; with ``use_ema`` the parameters are the trainer's EMA."""
     mcfg: DenoiserConfig = load_config(model_path)["denoiser"]
     # the frozen frontend may be trained in bf16, but inference runs it in
     # f32, as the JAX generate does
     mcfg = dataclasses.replace(mcfg, frontend_dtype="float32")
     model = FiLMDenoiser(mcfg)
-    sd = torch.load(os.path.join(model_path, MODEL_FILE), map_location="cpu", weights_only=True)
+    sd = _state_dict(model_path)
+    if use_ema:
+        ema = _ema_params(model_path)
+        if ema is None:
+            warnings.warn(f"use_ema=True but {model_path} has no EMA of its parameters: sampling from "
+                          "model.pt's (was it trained with ema_decay=0?)")
+        else:
+            sd.update(ema)
     model.load_state_dict(sd, strict=True)
     return model.to(device).eval()
+
+
+class GuideKeyframer:
+    """Keyframes from the guide LM, decoded by the frozen VQ codec
+    (reference: sample/generate.py:51-71 _replace_keyframes; JAX
+    apps/generate.py:52-88).  Each directory holds ``config.json`` (a
+    ``guide`` resp. ``vq`` section) and ``model.pt``."""
+
+    def __init__(self, guide_path: str, vq_path: str, device):
+        gcfg: GuideConfig = load_config(guide_path)["guide"]
+        vcfg: VQConfig = load_config(vq_path)["vq"]
+        self.guide = GuideTransformer(gcfg)
+        self.guide.load_state_dict(_state_dict(guide_path), strict=True)
+        self.guide.to(device).eval()
+        self.codec = TemporalVertexCodec(vcfg)
+        self.codec.load_state_dict(_state_dict(vq_path), strict=True)
+        self.codec.to(device).eval()
+
+    @torch.no_grad()
+    def __call__(self, audio: torch.Tensor, num_keyframes: int, generator: torch.Generator,
+                 top_p: float = 0.94) -> torch.Tensor:
+        """[B, S, 2] audio -> [B, num_keyframes, nfeats] normalised keyframes."""
+        depth = self.codec.cfg.depth
+        tokens = self.guide.generate(audio, num_keyframes * depth, generator, top_p)
+        return self.codec.decode(tokens.reshape(audio.shape[0], num_keyframes, depth))
 
 
 def draw_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -89,8 +154,10 @@ def generate(
     timestep_respacing: str = "ddim500",
     guide_path: Optional[str] = None,
     vq_path: Optional[str] = None,
+    top_p: float = 0.94,
     seed: int = 10,
     output_dir: Optional[str] = None,
+    use_ema: bool = False,
     plot: bool = False,
     face_codes: Optional[str] = None,
     renderer_path: Optional[str] = None,
@@ -99,12 +166,13 @@ def generate(
     timings: Optional[Dict[str, float]] = None,
 ) -> str:
     """Write ``results.npy`` and return its path.  ``timings``, when given,
-    receives the wall seconds of the conditioning encode (``encode_s``), the
-    lip regressor's share of it (``lip_s``, 0 for a pose model) and of the
-    DDIM loop (``ddim_s``), summed over repetitions (the device is
-    synchronised at each)."""
-    if guide_path or vq_path:
-        raise NotImplementedError("guide-LM keyframing (--resume_trans/--resume_vq) is not ported yet: see ROADMAP")
+    receives the wall seconds of the guide's keyframes (``guide_s``, 0
+    without a guide), of the conditioning encode (``encode_s``), the lip
+    regressor's share of it (``lip_s``, 0 for a pose model) and of the DDIM
+    loop (``ddim_s``), summed over repetitions (the device is synchronised
+    at each)."""
+    if bool(guide_path) != bool(vq_path):
+        raise ValueError("the guide keyframes need both --resume_trans (guide) and --resume_vq (VQ)")
     if plot and not (renderer_path and face_codes):
         raise ValueError("--plot needs --renderer_path (a renderer bundle) and --face_codes "
                          "(a face model's results.npy)")
@@ -112,7 +180,7 @@ def generate(
     cfgs = load_config(model_path)
     dcfg: DiffusionConfig = cfgs["diffusion"]
     datacfg: DataConfig = cfgs["data"]
-    model = load_model(model_path, dev)
+    model = load_model(model_path, dev, use_ema)
 
     scenes = load_local_data(data_root, datacfg.person)
     stats = find_stats(os.path.join(data_root, datacfg.person))
@@ -130,11 +198,22 @@ def generate(
         kv = torch.from_numpy(batch["keyframe_valid"]).to(dev)
     B, T, C = batch["motion"].shape
     generator = torch.Generator(device=dev).manual_seed(seed)
+    keyframer = guide_generator = None
+    if pose and guide_path:
+        keyframer = GuideKeyframer(guide_path, vq_path, dev)
+        guide_generator = torch.Generator(device=dev).manual_seed(seed + 1)
     if timings is not None:
-        timings.update(encode_s=0.0, lip_s=0.0, ddim_s=0.0)
+        timings.update(guide_s=0.0, encode_s=0.0, lip_s=0.0, ddim_s=0.0)
 
     all_motions, all_keyframes = [], []
     for _ in range(num_repetitions):
+        if keyframer is not None:  # as JAX apps/generate.py:172-174
+            t0 = time.perf_counter()
+            kf = keyframer(audio, batch["keyframes"].shape[1], guide_generator, top_p)
+            kv = torch.ones_like(kv)
+            if timings is not None:
+                _sync(dev)
+                timings["guide_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         lip = None
         if not pose:
@@ -155,7 +234,7 @@ def generate(
             timings["ddim_s"] += time.perf_counter() - t0
         all_motions.append(inv(sample))
         if pose:
-            all_keyframes.append(stats.inv_pose(batch["keyframes"]))
+            all_keyframes.append(stats.inv_pose(kf.cpu().numpy()))
 
     out_dir = output_dir or os.path.join(model_path, f"samples_{timestep_respacing}_seed{seed}")
     os.makedirs(out_dir, exist_ok=True)
@@ -234,10 +313,12 @@ def main():
     p.add_argument("--num_repetitions", type=int, default=1)
     p.add_argument("--guidance_param", type=float, default=2.0)
     p.add_argument("--timestep_respacing", default="ddim500")
-    p.add_argument("--resume_trans", default=None, help="guide checkpoint dir (not ported yet)")
-    p.add_argument("--resume_vq", default=None, help="VQ checkpoint dir (not ported yet)")
+    p.add_argument("--resume_trans", default=None, help="guide checkpoint dir (config.json + model.pt)")
+    p.add_argument("--resume_vq", default=None, help="VQ checkpoint dir (config.json + model.pt)")
+    p.add_argument("--top_p", type=float, default=0.94, help="nucleus mass of the guide's token draws")
     p.add_argument("--seed", type=int, default=10)
     p.add_argument("--output_dir", default=None)
+    p.add_argument("--use_ema", action="store_true", help="sample from the trainer's EMA of the parameters")
     p.add_argument("--plot", action="store_true", help="photoreal-render the samples")
     p.add_argument("--face_codes", default=None, help="face model results.npy for --plot")
     p.add_argument("--renderer_path", default=None, help="renderer bundle dir for --plot")
@@ -253,8 +334,10 @@ def main():
         timestep_respacing=args.timestep_respacing,
         guide_path=args.resume_trans,
         vq_path=args.resume_vq,
+        top_p=args.top_p,
         seed=args.seed,
         output_dir=args.output_dir,
+        use_ema=args.use_ema,
         plot=args.plot,
         face_codes=args.face_codes,
         renderer_path=args.renderer_path,

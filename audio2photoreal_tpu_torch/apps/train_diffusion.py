@@ -26,7 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from audio2photoreal_tpu_torch.apps.generate import find_stats
+from audio2photoreal_tpu_torch.apps.generate import CKPT_DIR, find_stats
 from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, TrainConfig, save_config
 from audio2photoreal_tpu_torch.core.device import resolve_device
 from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
@@ -37,8 +37,6 @@ from audio2photoreal_tpu_torch.train import checkpoints
 from audio2photoreal_tpu_torch.train.logging import PLATFORMS, KVLogger, TrainPlatform, create_platform
 from audio2photoreal_tpu_torch.train.loops import diffusion_train_step
 from audio2photoreal_tpu_torch.train.state import TrainState
-
-CKPT_DIR = "ckpt"
 
 
 def step_seed(seed: int, step: int) -> int:

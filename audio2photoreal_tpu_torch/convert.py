@@ -2,8 +2,10 @@
 
 The inverse of ``audio2photoreal_tpu/train/convert.py:convert_film_denoiser``
 (with ``convert_wav2vec_extractor`` for the bundled frontend and, for a face
-model, ``convert_lip_regressor`` and ``encoder_layer_rotary``) and of
-``convert_body_avatar`` (the ca_body render avatar): the port's
+model, ``convert_lip_regressor`` and ``encoder_layer_rotary``), of
+``convert_guide`` and ``convert_vqvae`` (the guide LM and the residual VQ
+with its codebook state) and of ``convert_body_avatar`` (the ca_body render
+avatar): the port's
 modules keep the torch reference's state-dict names, so the same mapping
 read backwards carries weights trained by the JAX package into the port.
 
@@ -172,6 +174,57 @@ def film_denoiser_state_dict_from_jax(
         sd.update(wav2vec_extractor_state_dict_from_jax(
             p["audio_frontend"]["feature_extractor"], "audio_model.feature_extractor"
         ))
+    return sd
+
+
+def guide_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """GuideTransformer params (``{"params": ...}`` or the inner tree) ->
+    state_dict under the names ``convert_guide`` reads: the pre-net's convs
+    at ``pre_audio.{3i}`` (conv, leaky ReLU, dropout) and its 1x1 conv after
+    them, the wav2vec frontend under ``audio_model.feature_extractor``."""
+    p = params["params"] if "params" in params else params
+    sd: StateDict = {"token_embedding.weight": _a(p["token_embedding"]["embedding"])}
+    _linear(sd, "cond_projection", p["cond_projection"])
+    _norm(sd, "norm_cond", p["norm_cond"])
+    _norm(sd, "non_attn_cond_projection.0", p["non_attn_norm"])
+    _linear(sd, "non_attn_cond_projection.1", p["non_attn_d1"])
+    _linear(sd, "non_attn_cond_projection.3", p["non_attn_d2"])
+    for n in ("null_cond_embed", "null_cond_hidden"):
+        sd[n] = _a(p[n])
+    pre = p["pre_audio"]
+    i = 0
+    while f"conv{i}_kernel" in pre:
+        _conv(sd, f"pre_audio.{3 * i}", pre[f"conv{i}_kernel"], pre[f"conv{i}_bias"])
+        i += 1
+    _conv(sd, f"pre_audio.{3 * i}", pre["conv_out_kernel"], pre["conv_out_bias"])
+    i = 0
+    while f"decoder_{i}" in p:
+        _decoder_layer(sd, f"seqTransDecoder.stack.{i}", p[f"decoder_{i}"])
+        i += 1
+    _linear(sd, "final_layer", p["final_layer"])
+    if "audio_frontend" in p:
+        sd.update(wav2vec_extractor_state_dict_from_jax(
+            p["audio_frontend"]["feature_extractor"], "audio_model.feature_extractor"
+        ))
+    return sd
+
+
+def vqvae_state_dict_from_jax(params: Mapping[str, Any], vq) -> StateDict:
+    """TemporalVertexCodec params and a ``VQState`` (or a mapping with its
+    ``embed``, ``embed_avg``, ``cluster_size``) -> state_dict under the
+    names ``convert_vqvae`` reads: convs at ``encoder.enc.{2i}`` /
+    ``decoder.dec.{2i}``, codebooks at ``quantizer.layers.{d}._codebook``."""
+    p = params["params"] if "params" in params else params
+    vq = vq._asdict() if hasattr(vq, "_asdict") else vq
+    sd: StateDict = {}
+    for side, seq in (("encoder", "enc"), ("decoder", "dec")):
+        i = 0
+        while f"conv{i}_kernel" in p[side]:
+            _conv(sd, f"{side}.{seq}.{2 * i}", p[side][f"conv{i}_kernel"], p[side][f"conv{i}_bias"])
+            i += 1
+    for name in ("embed", "embed_avg", "cluster_size"):
+        for d, book in enumerate(np.asarray(vq[name])):
+            sd[f"quantizer.layers.{d}._codebook.{name}"] = _a(book)
     return sd
 
 

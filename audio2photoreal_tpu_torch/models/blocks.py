@@ -1,4 +1,4 @@
-"""Transformer building blocks of the FiLM denoiser and the lip regressor.
+"""Transformer blocks of the FiLM denoiser, the guide LM and the lip regressor.
 
 Counterpart of ``audio2photoreal_tpu/models/blocks.py`` (reference:
 model/modules/transformer_modules.py:36-268): ``FiLMDecoderLayer``, a
@@ -11,6 +11,12 @@ released checkpoint loads as it is.
 
 Rotary is applied to the FULL d_model before the q/k projections, as the
 reference does (transformer_modules.py:88,238,252-253).
+
+The guide LM decodes one token at a time with ``FiLMDecoderLayer.step``:
+the new token's projected self-attention K/V go into a preallocated cache
+and the cross-attention K/V over the audio memory are projected once
+(``precompute_cross``), where the reference re-runs the whole transformer
+for every token (model/guide.py:197-218).
 
 Dropout follows the JAX package: attention-prob dropout (in the attention
 kernel, or Bernoulli on the plain path), after the feed-forward's GELU, and
@@ -31,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention, hash_bits
-from audio2photoreal_tpu_torch.ops.attention import dot_product_attention
+from audio2photoreal_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 from audio2photoreal_tpu_torch.ops.rotary import RotaryTable, apply_rotary
 
 INT32_MAX = 2**31 - 1
@@ -156,8 +162,8 @@ class MultiHeadAttention(nn.Module):
         return self.attend(q_in, k, v, bias, generator)
 
 
-def _maybe_rotate(x: torch.Tensor, rotary: Optional[RotaryTable]) -> torch.Tensor:
-    return apply_rotary(x, rotary) if rotary is not None else x
+def _maybe_rotate(x: torch.Tensor, rotary: Optional[RotaryTable], offset: int = 0) -> torch.Tensor:
+    return apply_rotary(x, rotary, offset) if rotary is not None else x
 
 
 class FiLMDecoderLayer(nn.Module):
@@ -190,30 +196,78 @@ class FiLMDecoderLayer(nn.Module):
         self,
         x: torch.Tensor,  # [B, T, D]
         t: torch.Tensor,  # [B, D] FiLM conditioning vector
-        cross_kv: Tuple[torch.Tensor, torch.Tensor],  # projected audio-memory K, V [B, Tm, D]:
-        # the denoiser projects all layers' cross K/V over the shared memory at once
-        memory2: torch.Tensor,  # [B, Tk, D] keyframe tokens (use_cm layers)
+        cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # projected audio-memory K, V
+        # [B, Tm, D]: the denoiser projects all layers' cross K/V over the shared memory at once
+        memory2: Optional[torch.Tensor] = None,  # [B, Tk, D] keyframe tokens (use_cm layers)
         rotary: Optional[RotaryTable] = None,
         generator: Optional[torch.Generator] = None,  # dropout draws (training)
+        *,
+        memory: Optional[torch.Tensor] = None,  # [B, Tm, D] raw audio memory, when no cross_kv (guide)
+        self_bias: Optional[torch.Tensor] = None,  # additive self-attention bias (the guide's causal mask)
+        x_offset: int = 0,  # rotary position of x's first row
     ) -> torch.Tensor:
         g = generator
         h = self.norm1(x)
-        qk = _maybe_rotate(h, rotary)
-        h = self.drop(self.self_attn(qk, qk, h, generator=g), g)
+        qk = _maybe_rotate(h, rotary, x_offset)
+        h = self.drop(self.self_attn(qk, qk, h, self_bias, generator=g), g)
         x = x + featurewise_affine(h, self.film1(t))
 
         h = self.norm2(x)
-        h = self.drop(self.multihead_attn.attend(_maybe_rotate(h, rotary), *cross_kv, generator=g), g)
+        q = _maybe_rotate(h, rotary, x_offset)
+        if cross_kv is None:  # K rotated, V not (JAX blocks.py:310-311)
+            cross_kv = self.precompute_cross(memory, rotary)
+        h = self.drop(self.multihead_attn.attend(q, *cross_kv, generator=g), g)
         x = x + featurewise_affine(h, self.film2(t))
 
         if self.use_cm:
             h = self.norm2a(x)
-            q = _maybe_rotate(h, rotary)
+            q = _maybe_rotate(h, rotary, x_offset)
             h = self.drop(self.multihead_attn2(q, _maybe_rotate(memory2, rotary), memory2, generator=g), g)
             x = x + featurewise_affine(h, self.film2a(t))
 
         h = self.ff_drop(F.gelu(self.linear1(self.norm3(x))), g)  # erf GELU, as the reference
         h = self.drop(self.linear2(h), g)
+        return x + featurewise_affine(h, self.film3(t))
+
+    # ------------------------------------------------------------------ #
+    # cached single-token decode (the guide LM; JAX blocks.py:334-372)
+    # ------------------------------------------------------------------ #
+
+    def precompute_cross(self, memory: torch.Tensor, rotary: Optional[RotaryTable]):
+        """-> (cross_k, cross_v) [B, Tm, D]: constant across decode steps."""
+        return self.multihead_attn.project_kv(_maybe_rotate(memory, rotary), memory)
+
+    def step(
+        self,
+        x_tok: torch.Tensor,  # [B, 1, D] the current token's activation
+        pos: int,  # its position
+        self_k: torch.Tensor,  # [B, L, D] cached projected self K, written at pos in place
+        self_v: torch.Tensor,  # [B, L, D] cached projected self V, written at pos in place
+        cross_k: torch.Tensor,  # [B, Tm, D] from precompute_cross
+        cross_v: torch.Tensor,
+        t: torch.Tensor,  # [B, D] FiLM vector
+        rotary: Optional[RotaryTable],
+    ) -> torch.Tensor:
+        """One decode step -> out_tok [B, 1, D], for a layer in eval mode (the
+        feed-forward and sublayer dropouts are skipped, as JAX's step skips
+        them).  Cache rows past ``pos`` are masked with ``NEG_INF``, so they
+        may hold anything."""
+        L = self_k.shape[1]
+        h = self.norm1(x_tok)
+        qk = _maybe_rotate(h, rotary, pos)
+        new_k, new_v = self.self_attn.project_kv(qk, h)
+        self_k[:, pos : pos + 1] = new_k
+        self_v[:, pos : pos + 1] = new_v
+        bias = torch.full((L,), NEG_INF, device=x_tok.device)
+        bias[: pos + 1] = 0.0
+        h = self.self_attn.attend(qk, self_k, self_v, bias)
+        x = x_tok + featurewise_affine(h, self.film1(t))
+
+        h = self.norm2(x)
+        h = self.multihead_attn.attend(_maybe_rotate(h, rotary, pos), cross_k, cross_v)
+        x = x + featurewise_affine(h, self.film2(t))
+
+        h = self.linear2(F.gelu(self.linear1(self.norm3(x))))
         return x + featurewise_affine(h, self.film3(t))
 
 

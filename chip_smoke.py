@@ -52,12 +52,25 @@ exception and a nonzero exit.
    card (kernels) against the CPU (plain versions): uint8 frames within 1
    count on >= 99.9% of the pixels that either render covers, coverage equal
    on >= 99.99% of all pixels.
-7. main path: ``apps.generate.generate`` on a synthetic person, the
+7. guide parity: the guide LM at ``GuideConfig()`` (latent 512, 6 layers,
+   4 heads, FF 1024, 1024 tokens) from ``--seed`` on 2 clips of 20 s:
+   teacher-forced logits over 81 tokens, card against CPU, within 1e-5 of
+   their largest magnitude; the VQ decode at ``VQConfig()`` (width 64, 1024
+   codes, depth 4) of 20 keyframes, card against CPU, within 1e-5 of its
+   scale; the cached decode of 80 tokens equal to the uncached one token
+   for token on the card, for the same Gumbel noise.
+8. main path: ``apps.generate.generate`` on a synthetic person, the
    full-width face model at DDIM-500, CFG 10.0, 2 samples (attention kernel
    launches counted: the cond-encoder's 2, then 8 layers x 2 attentions x
    500 steps; the lip regressor's share of the encode timed), then the
-   full-width pose model at DDIM-500, CFG 2.0, 2 samples (8 x 2 x 500
-   launches); after each, 5 more DDIM steps of the same model, timed alone
+   full-width pose model at DDIM-500, CFG 2.0, 2 samples, on keyframes that
+   the full-width guide and VQ (random weights from ``--seed``, saved as
+   checkpoint directories) sample from the audio: 20 keyframes x depth 4 =
+   80 tokens a clip by cached nucleus sampling (top-p 0.94), every token in
+   range, the keyframes [2, 20, 104], finite and not the dataset's (8 x 2 x
+   500 attention launches); the guide's keyframing once more under
+   torch.profiler (device busy, launches a token); after each model, 5 more
+   DDIM steps of it, timed alone
    and then under torch.profiler (device busy, launches, attention and GEMM
    ms per step); then sample 0's first 64 frames with the face model's codes
    of the same audio rendered at full width by ``load_body_renderer`` +
@@ -68,7 +81,7 @@ exception and a nonzero exit.
    ragged H 200 x W 2047 case: >= 99.99% of the 8-bit values exact, none
    more than 1 count off, tex_rec bit for bit; times with and without the
    tex_rec output and in the packed mode, the plain version's, the bound.
-8. kernel vs plain, attention training: at the pose trainer's shapes (B 64,
+9. kernel vs plain, attention training: at the pose trainer's shapes (B 64,
    H 4, Tq 600, Tk 600 and 2000, Dh 64), the face width (B 16, Dh 128) and
    the ragged masked causal case, f32 and bf16: the forward with the
    replayed dropout at rate 0.5 against the plain version with the explicit
@@ -79,12 +92,12 @@ exception and a nonzero exit.
    and the backward of ``scaled_dot_product_attention`` with the same mask
    at rate 0 (a yardstick only), and the backward's bound (10 B H Tq Tk Dh
    flops, flash.py:266, against bytes; for f32 also over 495/3 TFLOP/s).
-9. train parity: a full-width pose model from ``--seed``, one deterministic
+10. train parity: a full-width pose model from ``--seed``, one deterministic
    step at batch 4 with fixed t and noise, on the card (kernels) against the
    CPU (plain versions): loss 1e-5 relative, every gradient within 1e-4 of
    its largest element, params after the AdamW step within 2 lr and 99.9%
    within 1e-6.
-10. main path, training: ``apps.train_diffusion.train`` at the reference's
+11. main path, training: ``apps.train_diffusion.train`` at the reference's
    pose operating point (DenoiserConfig() widths, flash attention and hash
    dropout, raw audio through the frozen wav2vec frontend, batch 64, AdamW lr
    1e-4, cond_drop_prob 0.2) for 4 steps on the synthetic person (attention
@@ -159,6 +172,7 @@ GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # of the largest plain gradient
 TRAIN_DROPOUT = 0.1
 TRAIN_STEPS, TRAIN_BATCH = 4, 64
 LR = 1e-4
+GUIDE_REL_TOL = 1e-5  # guide logits and VQ decode, card vs CPU, of the largest magnitude
 
 
 def emit(phase: str, **fields) -> None:
@@ -838,6 +852,143 @@ def _display_compare(args) -> dict:
     return out
 
 
+def _guide_models(seed: int):
+    """The guide LM at ``GuideConfig()`` and the VQ codec at ``VQConfig()``,
+    random weights from ``seed`` (the codebooks he-uniform, as the JAX
+    package's ``VQState.create`` draws them without k-means), eval mode."""
+    import torch
+
+    from audio2photoreal_tpu_torch.core.config import GuideConfig, VQConfig
+    from audio2photoreal_tpu_torch.models.guide import GuideTransformer
+    from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
+
+    guide = GuideTransformer(GuideConfig())
+    guide.reset_parameters(torch.Generator().manual_seed(seed))
+    codec = TemporalVertexCodec(VQConfig())
+    codec.reset_parameters(torch.Generator().manual_seed(seed + 1))
+    return guide.eval(), codec.eval()
+
+
+def _guide_dirs(seed: int) -> tuple:
+    """``_guide_models`` saved as the checkpoint directories ``generate
+    --resume_trans / --resume_vq`` read (``config.json`` + ``model.pt``)."""
+    import torch
+
+    from audio2photoreal_tpu_torch.apps.generate import MODEL_FILE
+    from audio2photoreal_tpu_torch.core.config import save_config
+
+    guide, codec = _guide_models(seed)
+    dirs = os.path.join(WORK, "guide_model"), os.path.join(WORK, "vq_model")
+    for d, model, section in zip(dirs, (guide, codec), (dict(guide=guide.cfg), dict(vq=codec.cfg))):
+        save_config(d, **section)
+        torch.save(model.state_dict(), os.path.join(d, MODEL_FILE))
+    return dirs
+
+
+def phase_guide_parity(seed: int) -> None:
+    """The full-width guide and VQ, card against CPU (phase 7 of the head
+    note); the cached decode against the uncached one on the card."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    guide_cpu, codec_cpu = _guide_models(seed)
+    guide_gpu, codec_gpu = copy.deepcopy(guide_cpu).cuda(), copy.deepcopy(codec_cpu).cuda()
+    rng = np.random.RandomState(seed + 5)
+    B, frames, n_kf = 2, 600, 20
+    depth, vocab = codec_cpu.cfg.depth, guide_cpu.cfg.tokens
+    audio = torch.from_numpy(rng.randn(B, frames * 1600, 2).astype(np.float32))
+    tokens = torch.from_numpy(rng.randint(0, vocab, (B, n_kf * depth + 1)))
+    tokens[:, 0] = guide_cpu.start_token
+    codes = torch.from_numpy(rng.randint(0, vocab, (B, n_kf, depth)))
+
+    def logits(model, device):
+        with torch.no_grad():
+            cond = model.encode_conditioning(audio.to(device))
+            return cond.cond_tokens.shape[1], model.decode_logits(tokens.to(device), cond).cpu().numpy()
+
+    t0 = time.perf_counter()
+    n_cond, got = logits(guide_gpu, "cuda")
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, want = logits(guide_cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    with torch.no_grad():
+        kf_gpu = codec_gpu.decode(codes.cuda()).cpu().numpy()
+        kf_cpu = codec_cpu.decode(codes).numpy()
+    decoded, walls = {}, {}
+    for use_cache in (True, False):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decoded[use_cache] = guide_gpu.generate(audio.cuda(), n_kf * depth, g, 0.94, use_cache).cpu().numpy()
+        walls[use_cache] = time.perf_counter() - t0
+    scale, kf_scale = float(np.abs(want).max()), float(np.abs(kf_cpu).max())
+    row = dict(batch=B, seconds=frames / 30, cond_tokens=n_cond, decoded_tokens=n_kf * depth,
+               latent=guide_cpu.cfg.latent_dim, layers=guide_cpu.cfg.num_layers, heads=guide_cpu.cfg.num_heads,
+               vocab=vocab, logits_max_abs_err=float(np.abs(got - want).max()), logits_scale=scale,
+               vq_max_abs_err=float(np.abs(kf_gpu - kf_cpu).max()), vq_scale=kf_scale, rel_tol=GUIDE_REL_TOL,
+               cached_equals_uncached=bool(np.array_equal(decoded[True], decoded[False])),
+               tokens_in_range=bool(((decoded[True] >= 0) & (decoded[True] < vocab)).all()),
+               cached_generate_s=walls[True], uncached_generate_s=walls[False], gpu_s=gpu_s, cpu_s=cpu_s,
+               finite=bool(np.isfinite(got).all() and np.isfinite(kf_gpu).all()))
+    emit("guide_parity", **row)
+    if not (row["finite"] and row["cached_equals_uncached"] and row["tokens_in_range"]
+            and row["logits_max_abs_err"] <= GUIDE_REL_TOL * scale
+            and row["vq_max_abs_err"] <= GUIDE_REL_TOL * kf_scale):
+        raise AssertionError(f"the guide disagrees, card against CPU or cached against uncached: {row}")
+
+
+def _profile_guide(guide_dir: str, vq_dir: str, seed: int, num_keyframes: int = 20) -> dict:
+    """One keyframer call (2 clips of 20 s) on models loaded as generate
+    loads them, after a warm-up: its wall, then under torch.profiler its
+    device-busy time and launches, and the audio encode's launches alone,
+    so that the decode's launches a token step are (all - encode) / steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio2photoreal_tpu_torch.apps.generate import GuideKeyframer
+
+    keyframer = GuideKeyframer(guide_dir, vq_dir, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    audio = torch.randn((2, 600 * 1600, 2), generator=g, device="cuda")
+    steps = num_keyframes * keyframer.codec.cfg.depth
+    run = lambda: keyframer(audio, num_keyframes, g)  # noqa: E731
+    encode = lambda: keyframer.guide.encode_conditioning(audio)  # noqa: E731
+
+    @torch.no_grad()
+    def wall_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    call_ms, encode_ms = wall_ms(run), wall_ms(encode)
+
+    def device_events(fn):
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        return sum(e.count for e in events), sum(e.self_device_time_total for e in events) / 1e3
+
+    launches, busy_ms = device_events(run)
+    encode_launches, encode_busy_ms = device_events(encode)
+    if busy_ms == 0.0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return dict(guide_call_ms=call_ms, guide_device_ms=busy_ms, guide_idle_share=1.0 - busy_ms / call_ms,
+                guide_encode_ms=encode_ms, guide_encode_device_ms=encode_busy_ms,
+                guide_device_launches=launches, guide_encode_launches=encode_launches, guide_token_steps=steps,
+                guide_launches_per_token_step=(launches - encode_launches) / steps,
+                guide_decode_ms_per_token_step=(call_ms - encode_ms) / steps,
+                guide_decode_device_ms_per_token_step=(busy_ms - encode_busy_ms) / steps)
+
+
 def _profile_ddim(model_dir: str, guidance: float, seed: int, steps: int = 5) -> dict:
     """``steps`` DDIM steps of generate's loop (cached CFG, 2 clips of 20 s,
     random z-normed audio) on a model loaded as generate loads it: the wall
@@ -895,7 +1046,7 @@ def _profile_ddim(model_dir: str, guidance: float, seed: int, steps: int = 5) ->
 
 def phase_main_path(seed: int, smi: str) -> dict:
     """The face generate, the pose generate, and the render of the two
-    (phases 7-9 of the head note); the display kernel against its plain
+    (phase 8 of the head note); the display kernel against its plain
     version on the render's tensors."""
     import numpy as np
     import torch
@@ -921,6 +1072,7 @@ def phase_main_path(seed: int, smi: str) -> dict:
         torch.save(model.state_dict(), os.path.join(dirs[fmt], MODEL_FILE))
         del model
     fcfg, cfg = cfgs["face"], cfgs["pose"]
+    guide_dir, vq_dir = _guide_dirs(seed)
     setup_s = time.perf_counter() - t0
     T = cfg.max_seq_length
     audio_s = num_samples * T / 30.0
@@ -951,17 +1103,40 @@ def phase_main_path(seed: int, smi: str) -> dict:
     if not all(face_checks.values()):
         raise AssertionError(f"main path (face) checks failed: {face_checks}")
 
-    # --- pose: generate ---------------------------------------------------
+    # --- pose: generate on the guide's keyframes -----------------------------
+    from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
+    from audio2photoreal_tpu_torch.models import guide as guide_module
+
+    sampled = []  # the guide's tokens, read from its generate as generate calls it
+    guide_generate = guide_module.GuideTransformer.generate
+
+    def recording_generate(self, *args, **kwargs):
+        out = guide_generate(self, *args, **kwargs)
+        sampled.append(out.cpu().numpy())
+        return out
+
     timings = {}
     launch_counts.clear()
-    t0 = time.perf_counter()
-    path = generate(dirs["pose"], WORK, num_samples=num_samples, guidance_param=2.0,
-                    timestep_respacing=f"ddim{steps}", device="cuda", timings=timings)
-    total_s = time.perf_counter() - t0
+    guide_module.GuideTransformer.generate = recording_generate
+    try:
+        t0 = time.perf_counter()
+        path = generate(dirs["pose"], WORK, num_samples=num_samples, guidance_param=2.0,
+                        timestep_respacing=f"ddim{steps}", guide_path=guide_dir, vq_path=vq_dir, device="cuda",
+                        timings=timings)
+        total_s = time.perf_counter() - t0
+    finally:
+        guide_module.GuideTransformer.generate = guide_generate
     attn_launches = launch_counts[flash_attn.NAME]
 
     res = np.load(path, allow_pickle=True).item()
+    stats = find_stats(os.path.join(WORK, person))
+    ds = SocialDataset(load_local_data(WORK, person), stats,
+                       DataConfig(person=person, max_seq_length=T), "test")
+    dataset_kf = stats.inv_pose(np.stack([ds.get_chunk(i)["keyframes"] for i in range(num_samples)]))
+    n_kf = -(-T // cfg.keyframe_step)
+    guide_prof = _profile_guide(guide_dir, vq_dir, seed, n_kf)
     pose_prof = _profile_ddim(dirs["pose"], 2.0, seed)
+    tokens = np.concatenate(sampled) if sampled else np.zeros((0, 0), np.int64)
     checks = {
         "motions_shape": list(res["motions"].shape) == [num_samples, cfg.nfeats, 1, T],
         "motions_finite": bool(np.isfinite(res["motions"]).all()),
@@ -969,18 +1144,25 @@ def phase_main_path(seed: int, smi: str) -> dict:
         "attention_launches": attn_launches == cfg.num_layers * 2 * steps,
         # face and pose runs were made from the same audio (sample/generate.py:187-189)
         "face_audio_equal": bool(np.array_equal(face_res["audio"], res["audio"])),
+        "guide_tokens_shape": list(tokens.shape) == [num_samples, n_kf * 4],
+        "guide_tokens_in_range": tokens.size > 0 and bool(((tokens >= 0) & (tokens < 1024)).all()),
+        "keyframes_shape": list(res["keyframes"].shape) == [num_samples, n_kf, cfg.key_feature_dim],
+        "keyframes_finite": bool(np.isfinite(res["keyframes"]).all()),
+        "keyframes_not_the_datasets": dataset_kf.shape == res["keyframes"].shape
+        and not np.allclose(dataset_kf, res["keyframes"], atol=1e-3),
     }
     emit("main_path_generate", nvidia_smi=smi, samples=num_samples, ddim_steps=steps, guidance=2.0,
-         latent=cfg.latent_dim, layers=cfg.num_layers, heads=cfg.num_heads,
-         setup_s=setup_s, encode_s=timings["encode_s"], ddim_s=timings["ddim_s"],
+         latent=cfg.latent_dim, layers=cfg.num_layers, heads=cfg.num_heads, keyframes="guide", top_p=0.94,
+         setup_s=setup_s, guide_s=timings["guide_s"], guide_tokens=int(tokens.size),
+         guide_tokens_per_s=tokens.size / timings["guide_s"], encode_s=timings["encode_s"], ddim_s=timings["ddim_s"],
          generate_s=total_s, audio_s=audio_s, audio_s_per_wall_s=audio_s / total_s,
-         kernel_launches=attn_launches, motions_shape=list(res["motions"].shape), **pose_prof, checks=checks)
+         kernel_launches=attn_launches, motions_shape=list(res["motions"].shape),
+         keyframes_shape=list(res["keyframes"].shape), **guide_prof, **pose_prof, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"main path (pose) checks failed: {checks}")
 
     # --- render: a full-width renderer bundle, loaded as a user would --------
     t0 = time.perf_counter()
-    stats = find_stats(os.path.join(WORK, person))
     rcfg = RendererConfig()
     bundle_assets = make_synthetic_assets(rcfg, seed=seed, mesh_density=10)
     # the rig frames the person where its root stands on average (pose[0:3])
@@ -1070,7 +1252,7 @@ def _attn_inputs(g, B, H, Tq, Tk, Dh, masked):
 
 def phase_train_kernels(seed: int) -> dict:
     """The dropout forward and the backward kernels against their plain
-    versions at the trainer's shapes (phase 8 of the head note)."""
+    versions at the trainer's shapes (phase 9 of the head note)."""
     import torch
     import torch.nn.functional as F
 
@@ -1174,7 +1356,7 @@ def _train_batch(rng, B, T):
 
 
 def phase_train_parity(seed: int) -> None:
-    """One deterministic full-width train step, card against CPU (phase 9)."""
+    """One deterministic full-width train step, card against CPU (phase 10)."""
     import copy
 
     import numpy as np
@@ -1257,7 +1439,7 @@ def _profile_step(state, sched, dcfg, batch) -> dict:
 
 
 def phase_main_path_train(seed: int, smi: str):
-    """``train()`` at the reference's pose operating point (phase 10); the
+    """``train()`` at the reference's pose operating point (phase 11); the
     backward kernel's launches on it."""
     import dataclasses
 
@@ -1346,6 +1528,7 @@ def main() -> None:
     phase_slice_parity(args.seed)
     phase_face_slice_parity(args.seed)
     phase_render_parity(args.seed)
+    phase_guide_parity(args.seed)
     launches = phase_main_path(args.seed, smi)
     bwd = phase_train_kernels(args.seed)
     phase_train_parity(args.seed)

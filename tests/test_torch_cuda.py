@@ -11,7 +11,9 @@ element; the dropout mask exactly; the rasterizer's face ids and coverage
 exactly, depth / UV / barycentrics 1e-5; rendered uint8 frames within one
 count; the display kernel's tex_rec bit for bit and its 8-bit values exact
 on >= 99.99% of the channel texels and never more than one count off; a
-full-width face denoise step within 1e-3 of the CPU's.
+full-width face denoise step within 1e-3 of the CPU's; the full-width guide's
+teacher-forced logits within 1e-5 of their largest magnitude of the CPU's,
+its cached decode token for token equal to its uncached one.
 """
 
 import pytest
@@ -574,3 +576,63 @@ def test_face_denoiser_step_card_matches_cpu(cuda):
             assert launch_counts[flash_attn.NAME] - before == cfg.cond_encoder_layers + 2 * cfg.num_layers
     assert torch.isfinite(out["cuda"]).all()
     assert (out["cuda"] - out["cpu"]).abs().max().item() <= 1e-3
+
+
+@pytest.fixture(scope="module")
+def full_guide():
+    """``GuideConfig()`` (latent 512, 6 layers, 4 heads, 1024 tokens) with
+    random weights, on the CPU, and 20 s of audio for 2 clips."""
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.core.config import GuideConfig
+    from audio2photoreal_tpu_torch.models.guide import GuideTransformer
+
+    model = GuideTransformer(GuideConfig()).eval()
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    audio = np.random.RandomState(2).randn(2, 600 * 1600, 2).astype(np.float32)
+    return model, torch.from_numpy(audio)
+
+
+@pytest.mark.cuda
+def test_guide_logits_card_match_cpu(cuda, full_guide):
+    import copy
+
+    cpu, audio = full_guide
+    card = copy.deepcopy(cpu).to(cuda)
+    tokens = torch.randint(0, cpu.cfg.tokens + 1, (2, 81), generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        want = cpu.decode_logits(tokens, cpu.encode_conditioning(audio))
+        got = card.decode_logits(tokens.to(cuda), card.encode_conditioning(audio.to(cuda))).cpu()
+    assert got.shape == (2, 81, 1024) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_guide_cached_generate_equals_uncached_on_the_card(cuda, full_guide):
+    import copy
+
+    card = copy.deepcopy(full_guide[0]).to(cuda)
+    audio = full_guide[1].to(cuda)
+    out = {}
+    for use_cache in (True, False):
+        g = torch.Generator(device=cuda).manual_seed(4)
+        out[use_cache] = card.generate(audio, 80, g, 0.94, use_cache).cpu()
+    assert out[True].shape == (2, 80) and int(out[True].min()) >= 0 and int(out[True].max()) < 1024
+    assert torch.equal(out[True], out[False])
+
+
+@pytest.mark.cuda
+def test_guide_keyframer_on_the_card(cuda, full_guide, tmp_path):
+    from audio2photoreal_tpu_torch.apps.generate import MODEL_FILE, GuideKeyframer
+    from audio2photoreal_tpu_torch.core.config import GuideConfig, VQConfig, save_config
+    from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
+
+    codec = TemporalVertexCodec(VQConfig())
+    codec.reset_parameters(torch.Generator().manual_seed(1))
+    for name, model, section in (("guide", full_guide[0], dict(guide=GuideConfig())),
+                                 ("vq", codec, dict(vq=VQConfig()))):
+        save_config(str(tmp_path / name), **section)
+        torch.save(model.state_dict(), str(tmp_path / name / MODEL_FILE))
+    keyframer = GuideKeyframer(str(tmp_path / "guide"), str(tmp_path / "vq"), cuda)
+    kf = keyframer(full_guide[1].to(cuda), 20, torch.Generator(device=cuda).manual_seed(5))
+    assert kf.shape == (2, 20, 104) and kf.device.type == "cuda" and torch.isfinite(kf).all()

@@ -5,7 +5,11 @@ reach the 128 floor, so the JAX side really runs its Pallas attention kernel
 (interpret mode on the CPU) and the port runs its kernel wrapper (the plain
 version, the tensors being on the CPU).  The same weights go to both sides
 through ``convert.film_denoiser_state_dict_from_jax`` and the same numpy x_T
-is injected; tolerance 1e-4 atol and rtol after DDIM-10.
+is injected; tolerance 1e-4 atol and rtol after DDIM-10.  With guide
+keyframes, a tiny guide (latent 64, 2 layers, 32 tokens) and VQ (width 16,
+depth 2) go to both sides through ``convert.guide_state_dict_from_jax`` /
+``vqvae_state_dict_from_jax`` and JAX's Gumbel noise is injected: the tokens
+equal, the keyframes within 2e-5 of their scale, the motions within 1e-4.
 """
 
 import numpy as np
@@ -21,6 +25,9 @@ from audio2photoreal_tpu.diffusion import respace as j_respace
 from audio2photoreal_tpu.diffusion import sampling as j_sampling
 from audio2photoreal_tpu.models.cfg import cfg_model_fn_cached as j_cfg_cached
 from audio2photoreal_tpu.models.film_transformer import FiLMDenoiser as JDenoiser
+from audio2photoreal_tpu.models.guide import GuideTransformer as JGuide
+from audio2photoreal_tpu.models.vqvae import TemporalVertexCodec as JCodec
+from audio2photoreal_tpu.models.vqvae import VQState
 from audio2photoreal_tpu.ops.pallas import flash as j_flash
 from audio2photoreal_tpu.train import checkpoints
 from audio2photoreal_tpu_torch import convert
@@ -28,7 +35,7 @@ from audio2photoreal_tpu_torch.apps import generate
 from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
 from audio2photoreal_tpu_torch.diffusion import respace, sampling
 from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention_reference
-from audio2photoreal_tpu_torch.models import blocks
+from audio2photoreal_tpu_torch.models import blocks, guide
 from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn, cfg_model_fn_cached
 
 T = 128
@@ -125,11 +132,99 @@ def test_generate_results_match_jax(slice_setup, monkeypatch, tmp_path):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_generate_refuses_what_is_not_ported(slice_setup):
+GUIDE = dict(tokens=32, latent_dim=64, ff_size=96, num_layers=2, num_heads=2, vq_depth=2, dropout=0.0)
+VQ = dict(nfeats=104, emb_width=16, code_dim=32, depth=2, kmeans_init=False)
+
+
+@pytest.fixture(scope="module")
+def guide_dirs(slice_setup):
+    """A tiny guide and VQ, saved for the JAX package (orbax ``ckpt``) and
+    for the port (``model.pt``), each with its ``config.json``."""
+    root, rng = slice_setup["root"], np.random.RandomState(4)
+    perturb = lambda t: jax.tree_util.tree_map(  # noqa: E731
+        lambda x: x + 0.1 * rng.randn(*x.shape).astype(np.float32) if x.ndim == 1 else x, t)
+    gcfg, vcfg = j_config.GuideConfig(**GUIDE), j_config.VQConfig(**VQ)
+    gparams = perturb(jax.jit(JGuide(gcfg).init)(
+        {"params": jax.random.PRNGKey(5), "cond_drop": jax.random.PRNGKey(6)},
+        jnp.zeros((2, 4), jnp.int32), jnp.zeros((2, 30 * 1600, 2))))
+    vq = VQState.create(jax.random.PRNGKey(7), vcfg)
+    vparams = perturb(JCodec(vcfg).init(jax.random.PRNGKey(8), jnp.zeros((2, 5, 104)), vq))
+    dirs = {k: f"{root}/{k}" for k in ("j_guide", "j_vq", "p_guide", "p_vq")}
+    for side in ("j", "p"):
+        j_config.save_config(dirs[f"{side}_guide"], guide=gcfg)
+        j_config.save_config(dirs[f"{side}_vq"], vq=vcfg)
+    checkpoints.save(f"{dirs['j_guide']}/ckpt", 0, {"params": gparams}, block=True)
+    checkpoints.save(f"{dirs['j_vq']}/ckpt", 0, {"params": vparams, "vq": {
+        "embed": vq.embed, "embed_avg": vq.embed_avg, "cluster_size": vq.cluster_size}}, block=True)
+    torch.save(convert.guide_state_dict_from_jax(gparams), f"{dirs['p_guide']}/{generate.MODEL_FILE}")
+    torch.save(convert.vqvae_state_dict_from_jax(vparams, vq), f"{dirs['p_vq']}/{generate.MODEL_FILE}")
+    return dirs
+
+
+def test_generate_with_guide_keyframes_matches_jax(slice_setup, guide_dirs, monkeypatch, tmp_path):
+    s, d = slice_setup, guide_dirs
+    x_T = s["x_T"]
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=jnp.float32: jnp.asarray(x_T, dtype))
+    monkeypatch.setattr(generate, "draw_noise", lambda shape, g, device: torch.from_numpy(x_T))
+    # JAX's tokens and the key its keyframer draws them from
+    seen = {}
+    j_call = j_generate.GuideKeyframer.__call__
+
+    def j_spy(self, audio, num_keyframes, key, top_p=0.94):
+        seen["key"], seen["n"] = key, num_keyframes * self.vcfg.depth
+        seen["jax"] = np.asarray(self.guide.apply(self.gparams, audio, seen["n"], key, top_p=top_p,
+                                                  method=JGuide.generate))
+        return j_call(self, audio, num_keyframes, key, top_p)
+
+    monkeypatch.setattr(j_generate.GuideKeyframer, "__call__", j_spy)
+    kw = dict(num_samples=2, guidance_param=2.0, timestep_respacing="ddim10", top_p=0.9)
+    want = np.load(j_generate.generate(s["j_dir"], s["root"], guide_path=d["j_guide"], vq_path=d["j_vq"],
+                                       output_dir=str(tmp_path / "j"), **kw), allow_pickle=True).item()
+    assert seen["jax"].shape == (2, 5 * 2)  # ceil(128 / 30) keyframes x depth 2
+
+    # the port, with the Gumbel noise of JAX's steps
+    key, noise = seen["key"], []
+    for _ in range(seen["n"]):
+        key, sub = jax.random.split(key)
+        noise.append(np.array(jax.random.gumbel(sub, (2, GUIDE["tokens"]))))
+    it = iter(noise)
+    monkeypatch.setattr(guide, "draw_gumbel", lambda shape, g, device: torch.from_numpy(next(it)))
+    p_generate = guide.GuideTransformer.generate
+
+    def p_spy(self, *a, **k):
+        seen["port"] = p_generate(self, *a, **k).numpy()
+        return torch.from_numpy(seen["port"])
+
+    monkeypatch.setattr(guide.GuideTransformer, "generate", p_spy)
+    timings = {}
+    got = np.load(generate.generate(s["p_dir"], s["root"], guide_path=d["p_guide"], vq_path=d["p_vq"],
+                                    output_dir=str(tmp_path / "p"), device="cpu", timings=timings, **kw),
+                  allow_pickle=True).item()
+    np.testing.assert_array_equal(seen["port"], seen["jax"])
+    assert sorted(got) == sorted(want) == ["audio", "gt", "keyframes", "lengths", "motions"]
+    assert got["keyframes"].shape == (2, 5, 104)
+    scale = np.abs(want["keyframes"]).max()
+    np.testing.assert_allclose(got["keyframes"], want["keyframes"], atol=2e-5 * scale, rtol=0)
+    np.testing.assert_allclose(got["motions"], want["motions"], **TOL)
+    for k in ("gt", "audio", "lengths"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert timings["guide_s"] > 0.0
+    # the keyframes are the guide's, not the dataset's
+    gt = np.load(generate.generate(s["p_dir"], s["root"], output_dir=str(tmp_path / "gt"), device="cpu", **kw),
+                 allow_pickle=True).item()
+    assert not np.allclose(gt["keyframes"], got["keyframes"], atol=1e-3)
+
+
+def test_generate_refuses_what_is_not_ported(slice_setup, guide_dirs, tmp_path):
     s = slice_setup
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        generate.generate(s["p_dir"], s["root"], device="cpu", guide_path="g", vq_path="v")
     # the render is ported; it refuses to start without its two inputs
     for kw in (dict(), dict(renderer_path="r"), dict(face_codes="f")):
         with pytest.raises(ValueError, match="--plot needs"):
             generate.generate(s["p_dir"], s["root"], device="cpu", plot=True, **kw)
+    # a guide needs its VQ, and a bf16 frontend is not ported
+    with pytest.raises(ValueError, match="--resume_vq"):
+        generate.generate(s["p_dir"], s["root"], device="cpu", guide_path=guide_dirs["p_guide"])
+    bf16 = str(tmp_path / "bf16_guide")
+    j_config.save_config(bf16, guide=j_config.GuideConfig(frontend_dtype="bfloat16", **GUIDE))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
+        generate.generate(s["p_dir"], s["root"], device="cpu", guide_path=bf16, vq_path=guide_dirs["p_vq"])

@@ -367,11 +367,11 @@ def person(tmp_path_factory):
     return root
 
 
-def _train(root, save_dir, num_steps, **kw):
+def _train(root, save_dir, num_steps, ema_decay=0.0, **kw):
     return train_diffusion.train(
         root, save_dir, DenoiserConfig(**TINY), DiffusionConfig(),
         DataConfig(person="SYNTH01", max_seq_length=T, min_seq_length=100, batch_size=2),
-        TrainConfig(num_steps=num_steps, log_interval=1, save_interval=1000, seed=5), **kw)
+        TrainConfig(num_steps=num_steps, log_interval=1, save_interval=1000, seed=5, ema_decay=ema_decay), **kw)
 
 
 def test_train_writes_a_checkpoint_that_resumes_and_samples(person, tmp_path):
@@ -391,6 +391,35 @@ def test_train_writes_a_checkpoint_that_resumes_and_samples(person, tmp_path):
     res = np.load(generate(run, person, num_samples=1, timestep_respacing="ddim2", device="cpu",
                            output_dir=str(tmp_path / "samples")), allow_pickle=True).item()
     assert res["motions"].shape == (1, 104, 1, T) and np.isfinite(res["motions"]).all()
+
+
+def test_generate_samples_from_the_ema(person, tmp_path):
+    """``generate(use_ema=True)`` takes the EMA the trainer keeps in its
+    latest checkpoint: it samples as a model.pt holding those parameters
+    does.  Without an EMA it warns and samples from model.pt."""
+    run = str(tmp_path / "run")
+    state = _train(person, run, 2, ema_decay=0.5, device="cpu")
+    ema_dir = str(tmp_path / "ema_model")
+    os.makedirs(ema_dir)
+    with open(os.path.join(run, "config.json")) as f, open(os.path.join(ema_dir, "config.json"), "w") as g:
+        g.write(f.read())
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    sd.update({k: v.cpu() for k, v in state.ema.items()})
+    torch.save(sd, os.path.join(ema_dir, "model.pt"))
+    kw = dict(num_samples=1, timestep_respacing="ddim2", device="cpu")
+
+    def motions(path, name, **k):
+        return np.load(generate(path, person, output_dir=str(tmp_path / name), **kw, **k),
+                       allow_pickle=True).item()["motions"]
+
+    ema = motions(run, "ema", use_ema=True)
+    np.testing.assert_array_equal(ema, motions(ema_dir, "ema_file"))
+    assert not np.allclose(ema, motions(run, "raw"))
+    plain = str(tmp_path / "plain")
+    _train(person, plain, 1, device="cpu")
+    with pytest.warns(UserWarning, match="no EMA"):
+        without = motions(plain, "no_ema", use_ema=True)
+    np.testing.assert_array_equal(without, motions(plain, "plain_raw"))
 
 
 def test_train_runs_on_the_card_by_default(person, tmp_path, monkeypatch):
