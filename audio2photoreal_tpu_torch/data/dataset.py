@@ -8,8 +8,8 @@ Reference behavior reproduced (data_loaders/get_data.py + data.py):
 - splits: train = all but last 6, val = next 2, test = last 4 (data.py:52-54),
 - z-norm from per-person stats; face codes zeroed at missing frames
   (data.py:251-252),
-- train: random sub-window with random length in [min,max] then zero-pad
-  (data.py:173-218); test: fixed-size chunking (data.py:112-144),
+- val / test: fixed-size chunking (data.py:112-144); the train split's
+  random sub-windows (data.py:173-218) are ``data/loader.py``'s,
 - 1 fps keyframes = motion[::30] (data.py:146-150).
 
 Every batch has static shapes: motion is always padded to ``max_seq_length``
@@ -23,7 +23,7 @@ import glob
 import os
 import wave
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 
@@ -122,9 +122,11 @@ def split_scenes(scenes: List[Scene], split: str, num_val: int = 2, num_test: in
 
 
 class SocialDataset:
-    """Fixed-shape batch sampler over scenes.
+    """Fixed-shape examples over the scenes of one split; the val and test
+    splits are chunked deterministically (the trainer's random windows are
+    ``data/loader.py:FastLoader``'s).
 
-    Batches (all float32 unless noted):
+    Examples (all float32 unless noted; B is the stack of ``get_chunk``s):
       motion      [B, Tmax, C]   z-normed pose (104) or face codes (256)
       mask        [B, Tmax]      1 where the frame is valid AND non-missing
       lengths     [B] int32
@@ -161,18 +163,6 @@ class SocialDataset:
 
     def __len__(self) -> int:
         return len(self.chunks) if self.chunks is not None else len(self.scenes)
-
-    def _window(self, rng: np.random.RandomState, scene: Scene):
-        """Random length in [min,max], random start, retry while the window is
-        entirely missing (data.py:173-218)."""
-        T = len(scene.pose)
-        for _ in range(10):
-            L = rng.randint(self.cfg.min_seq_length, self.cfg.max_seq_length + 1)
-            L = min(L, T)
-            start = rng.randint(0, max(T - L, 0) + 1)
-            if not scene.missing[start : start + L].all():
-                return start, L
-        return 0, min(T, self.Tmax)
 
     def _make_example(self, scene: Scene, start: int, L: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
@@ -214,29 +204,7 @@ class SocialDataset:
             ex["keyframe_valid"] = kv
         return ex
 
-    def sample_batch(self, rng: np.random.RandomState, batch_size: int) -> Dict[str, np.ndarray]:
-        exs = []
-        for _ in range(batch_size):
-            if self.chunks is not None:
-                si, start, L = self.chunks[rng.randint(len(self.chunks))]
-                exs.append(self._make_example(self.scenes[si], start, L))
-            else:
-                sc = self.scenes[rng.randint(len(self.scenes))]
-                start, L = self._window(rng, sc)
-                exs.append(self._make_example(sc, start, L))
-        return {k: np.stack([e[k] for e in exs]) for k in exs[0]}
-
     def get_chunk(self, i: int) -> Dict[str, np.ndarray]:
         assert self.chunks is not None, "chunked access is for val/test splits"
         si, start, L = self.chunks[i]
         return self._make_example(self.scenes[si], start, L)
-
-    def iter_batches(self, batch_size: int, seed: int = 0, epochs: Optional[int] = None):
-        """Host-side generator; device placement happens in the train loop."""
-        rng = np.random.RandomState(seed)
-        epoch = 0
-        while epochs is None or epoch < epochs:
-            n = max(len(self) // batch_size, 1)
-            for _ in range(n):
-                yield self.sample_batch(rng, batch_size)
-            epoch += 1

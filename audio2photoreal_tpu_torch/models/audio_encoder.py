@@ -24,7 +24,7 @@ layout inside the modules; the public functions take and return [B, T, C].
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -53,10 +53,23 @@ def feature_frames(n_samples: int, spec=VQ_WAV2VEC_SPEC) -> int:
 
 class GroupNormAll(nn.GroupNorm):
     """fairseq's Fp32GroupNorm(1, dim): one group, so the moments are over
-    (C, T) jointly, with the population variance and eps 1e-5."""
+    (C, T) jointly, with the population variance and eps 1e-5.  With a
+    [B, T] ``mask`` the moments are taken over the frames it keeps (the JAX
+    package's ``_GroupNormAll`` with ``mask``); every frame is normalised."""
 
     def __init__(self, dim: int):
         super().__init__(1, dim, eps=1e-5)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask is None:
+            return super().forward(x)
+        x32 = x.float()
+        m = mask[:, None, :].float()
+        cnt = torch.clamp(m.sum(dim=(1, 2), keepdim=True) * x.shape[1], min=1.0)
+        mean = (x32 * m).sum(dim=(1, 2), keepdim=True) / cnt
+        var = ((x32 - mean).square() * m).sum(dim=(1, 2), keepdim=True) / cnt
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight[:, None] + self.bias[:, None]).to(x.dtype)
 
 
 class ConvFeatureExtractor(nn.Module):
@@ -77,10 +90,27 @@ class ConvFeatureExtractor(nn.Module):
             cin = dim
         self.conv_layers = nn.ModuleList(layers)
 
-    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+    def forward(self, wav: torch.Tensor, n_valid=None) -> torch.Tensor:
+        """``n_valid`` (an int or a [B] tensor: the samples before zero
+        padding) gives every group norm masked moments over the frames whose
+        receptive field lies in the real signal, as the JAX package's
+        ``ConvFeatureExtractor`` does; the first ``feature_frames(n_valid)``
+        frames then equal the extractor's on the unpadded signal."""
         x = wav[:, None, :]
-        for layer in self.conv_layers:
-            x = layer(x)
+        if n_valid is None:
+            for layer in self.conv_layers:
+                x = layer(x)
+        else:
+            n = torch.as_tensor(n_valid, device=wav.device).reshape(-1, 1)
+            rf, jump = 1, 1
+            for layer in self.conv_layers:
+                conv, norm = layer[0], layer[2]
+                x = conv(x)
+                rf += (conv.kernel_size[0] - 1) * jump
+                jump *= conv.stride[0]
+                frames = torch.arange(x.shape[-1], device=wav.device)
+                mask = (frames[None] < (n - rf) // jump + 1).float().expand(x.shape[0], -1)
+                x = torch.relu(norm(x, mask))
         x = x.transpose(1, 2).float()
         if self.log_compression:
             x = torch.log(torch.abs(x) + 1.0)
@@ -97,9 +127,12 @@ class Wav2VecFeatureExtractor(nn.Module):
         self.input_sr = input_sr
         self.feature_extractor = ConvFeatureExtractor()
 
-    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+    def forward(self, audio: torch.Tensor, n_valid=None) -> torch.Tensor:
+        """``n_valid`` (48 kHz samples before zero padding, an int or [B])
+        gives masked group-norm moments (``ConvFeatureExtractor``)."""
+        n16 = None if n_valid is None else torch.as_tensor(n_valid) * WAV2VEC_SR // self.input_sr
         feats = [
-            self.feature_extractor(resample(audio[..., ch], self.input_sr, WAV2VEC_SR))
+            self.feature_extractor(resample(audio[..., ch], self.input_sr, WAV2VEC_SR), n16)
             for ch in range(2)
         ]
         return torch.cat(feats, dim=-1)

@@ -136,6 +136,16 @@ class FiLMDenoiser(nn.Module):
         self.register_buffer("rotary_cos", rot.cos, persistent=False)
         self.register_buffer("rotary_sin", rot.sin, persistent=False)
 
+    def train(self, mode: bool = True) -> "FiLMDenoiser":
+        """Training mode for everything but the frozen frontends, which stay
+        in eval mode (the lip regressor's feed-forward dropout stays off, as
+        the JAX package runs it)."""
+        super().train(mode)
+        self.audio_model.eval()
+        if self.cfg.data_format == "face":
+            self.lip_model.eval()
+        return self
+
     @property
     def layers(self):
         return self.seqTransDecoder.stack
@@ -193,18 +203,21 @@ class FiLMDenoiser(nn.Module):
 
     def encode_conditioning(
         self,
-        audio: torch.Tensor,  # [B, S, 2]
+        audio: Optional[torch.Tensor],  # [B, S, 2]
         keyframes: Optional[torch.Tensor] = None,  # [B, Tk, key_dim] (pose)
         keyframe_valid: Optional[torch.Tensor] = None,  # [B, Tk] 1 = valid (pose)
         generator: Optional[torch.Generator] = None,  # cond-encoder dropout (face, training)
         lip_verts: Optional[torch.Tensor] = None,  # [B, T, 1014] ``lip_vertices(audio)`` (face)
+        audio_features: Optional[torch.Tensor] = None,  # [B, Ta, 1024] ``encode_audio(audio)``
     ) -> CondTokens:
-        """Per-clip conditioning.  A face model takes the lip vertices from
-        ``lip_verts`` when given (as the JAX package's argument of that name),
-        else computes them."""
-        feats = self.encode_audio(audio)
+        """Per-clip conditioning.  ``audio_features`` and, for a face model,
+        ``lip_verts`` stand in for the frozen frontends' outputs (the
+        trainer's feature cache, ``data/feature_cache.py``): given
+        ``encode_audio(audio)`` and ``lip_vertices(audio)`` the result is the
+        raw-audio path's, exactly.  ``audio`` may then be None."""
+        feats = self.encode_audio(audio) if audio_features is None else audio_features.detach()
         if self.cfg.data_format == "face":
-            lip = self.lip_vertices(audio) if lip_verts is None else lip_verts
+            lip = self.lip_vertices(audio) if lip_verts is None else lip_verts.detach()
             feats = torch.cat([feats, _resize_nearest(lip, feats.shape[1])], dim=-1)
             cond_tokens = self.cond_projection(feats)
             rot = RotaryTable(self.rotary_cos, self.rotary_sin)
@@ -304,16 +317,19 @@ class FiLMDenoiser(nn.Module):
         self,
         x: torch.Tensor,  # [B, T, nfeats] noisy motion
         t: torch.Tensor,  # [B] timesteps
-        audio: torch.Tensor,  # [B, S, 2] raw 48 kHz stereo
+        audio: Optional[torch.Tensor],  # [B, S, 2] raw 48 kHz stereo
         keyframes: Optional[torch.Tensor] = None,  # [B, Tk, key_dim] (pose)
         keyframe_valid: Optional[torch.Tensor] = None,
         cond_drop_prob: float = 0.0,
         generator: Optional[torch.Generator] = None,  # CPU generator of this step's draws
+        audio_features: Optional[torch.Tensor] = None,  # [B, Ta, 1024] precomputed
+        lip_verts: Optional[torch.Tensor] = None,  # [B, T, 1014] precomputed (face)
     ) -> torch.Tensor:
         """The training forward: encode, classifier-free-guidance dropout of
         the audio and, independently, of the keyframes (diffusion.py:326,
-        :367), denoise."""
-        cond = self.encode_conditioning(audio, keyframes, keyframe_valid, generator)
+        :367), denoise.  ``audio_features`` / ``lip_verts`` as in
+        ``encode_conditioning``."""
+        cond = self.encode_conditioning(audio, keyframes, keyframe_valid, generator, lip_verts, audio_features)
         B = x.shape[0]
         if cond_drop_prob > 0.0:
             u = torch.rand((2, B), generator=generator).to(x.device)

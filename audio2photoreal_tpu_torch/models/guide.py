@@ -167,12 +167,19 @@ class GuideTransformer(nn.Module):
 
     def encode_conditioning(
         self,
-        audio: torch.Tensor,  # [B, S, 2] raw 48 kHz
+        audio: Optional[torch.Tensor],  # [B, S, 2] raw 48 kHz
         keep_mask: Optional[torch.Tensor] = None,  # [B] bool, False -> null conditioning
         generator: Optional[torch.Generator] = None,  # pre-net dropout (training)
+        audio_features: Optional[torch.Tensor] = None,  # [B, Ta, 1024] precomputed
     ) -> GuideCond:
-        with torch.no_grad():
-            feats = self.audio_model(audio)
+        """``audio_features`` (``data/feature_cache.py``) stand in for the
+        frozen frontend's output: given ``audio_model(audio)`` the result is
+        the raw-audio path's, exactly."""
+        if audio_features is not None:
+            feats = audio_features.detach()
+        else:
+            with torch.no_grad():
+                feats = self.audio_model(audio)
         cond = self.cond_projection(self.pre_audio(feats, generator))
         if keep_mask is not None:
             cond = torch.where(keep_mask[:, None, None], cond, self.null_cond_embed[:, : cond.shape[1]])
@@ -192,15 +199,18 @@ class GuideTransformer(nn.Module):
                       self_bias=bias)
         return self.final_layer(x)
 
-    def forward(self, tokens: torch.Tensor, audio: torch.Tensor, cond_drop_prob: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, audio: Optional[torch.Tensor], cond_drop_prob: float = 0.0,
+                generator: Optional[torch.Generator] = None,
+                audio_features: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Teacher-forced training forward -> [B, L, tokens] logits; each
         clip's conditioning is dropped with ``cond_drop_prob`` (a draw from
-        ``generator``, a CPU generator)."""
+        ``generator``, a CPU generator).  ``audio_features`` as in
+        ``encode_conditioning``."""
         keep = None
         if cond_drop_prob > 0.0:
             keep = (torch.rand((tokens.shape[0],), generator=generator) >= cond_drop_prob).to(tokens.device)
-        return self.decode_logits(tokens, self.encode_conditioning(audio, keep, generator), generator)
+        cond = self.encode_conditioning(audio, keep, generator, audio_features)
+        return self.decode_logits(tokens, cond, generator)
 
     # ------------------------------------------------------------------ #
 

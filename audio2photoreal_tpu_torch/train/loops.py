@@ -2,11 +2,12 @@
 
 Counterpart of ``audio2photoreal_tpu/train/loops.py:make_diffusion_train_step``
 (reference: training_loop.py:174-215 + gaussian_diffusion.py:1195-1271):
-sample t and noise, diffuse, run the training forward, masked L2 (+ velocity,
-masked by the batch's lengths, + the vb diagnostic), backward, and one
-optimizer update unless the loss or
-the gradient norm is not finite, in which case the update is skipped
-(the role of the reference's fp16 NaN backoff).
+sample t and noise, diffuse, run the training forward (pose or face, on raw
+audio or on the feature cache's ``audio_features`` / ``lip_verts``), masked
+L2 (+ velocity, masked by the batch's lengths, + the vb diagnostic),
+backward, and one optimizer update unless the loss or the gradient norm is
+not finite, in which case the update is skipped (the role of the
+reference's fp16 NaN backoff).
 
 Every random draw of a step comes from two generators the caller seeds for
 that step: a CPU one (t, the guidance-dropout draws, one seed per dropout
@@ -75,8 +76,10 @@ def diffusion_train_step(
         noise = torch.randn(x0.shape, generator=noise_generator, device=device)
     xt = gaussian.q_sample(schedule, x0, t, noise)
 
-    out = model(xt, t, batch["audio"], batch["keyframes"], batch.get("keyframe_valid"),
-                cond_drop_prob=dcfg.cond_drop_prob, generator=generator)
+    # a face batch has no keyframes; a cached batch has features in place of audio
+    out = model(xt, t, batch.get("audio"), batch.get("keyframes"), batch.get("keyframe_valid"),
+                cond_drop_prob=dcfg.cond_drop_prob, generator=generator,
+                audio_features=batch.get("audio_features"), lip_verts=batch.get("lip_verts"))
     terms = losses.training_losses(schedule, dcfg.predict, out, x0, xt, t, batch["mask"][..., None],
                                    lambda_vel=dcfg.lambda_vel, var_type=dcfg.var_type, with_vb=True,
                                    vel_mask=validity_mask(batch, x0.shape[1]))

@@ -92,19 +92,46 @@ exception and a nonzero exit.
    and the backward of ``scaled_dot_product_attention`` with the same mask
    at rate 0 (a yardstick only), and the backward's bound (10 B H Tq Tk Dh
    flops, flash.py:266, against bytes; for f32 also over 495/3 TFLOP/s).
-10. train parity: a full-width pose model from ``--seed``, one deterministic
+10. the same at the face trainer's shapes, f32, dropout 0.1: B 64, H 4,
+   Dh 128, Tq = Tk = 1998 (the cond-encoder), Tq 600 x Tk 2000 (the
+   decoder's cross-attention) and Tq = Tk = 600 (the decoder's
+   self-attention): the mask exact at B 64 (rate 0.5 against the plain
+   version run a few batch rows at a time), forward and gradients against
+   the plain versions at B 16 for 1998 x 1998 (the plain [B, H, Tq, Tk]
+   temporaries do not fit at B 64) and B 64 for the decoder's two shapes;
+   times at B 64 (kernels, SDPA) and at the plain batch (plain versions);
+   the backward's peak memory and its dQ-partial scratch.
+11. train parity: a full-width pose model from ``--seed``, one deterministic
    step at batch 4 with fixed t and noise, on the card (kernels) against the
    CPU (plain versions): loss 1e-5 relative, every gradient within 1e-4 of
    its largest element, params after the AdamW step within 2 lr and 99.9%
    within 1e-6.
-11. main path, training: ``apps.train_diffusion.train`` at the reference's
+12. feature cache: the trainers' synthetic person (12 scenes of ~60 s, 6 in
+   the train split); the full-width face model's frozen wav2vec frontend and
+   lip regressor run once over the train split on the card
+   (``data/feature_cache.py``): scene 0 against the same build on the CPU
+   within 1e-5 of the scale (features, lip vertices, both silence vectors),
+   a 600-frame crop from frame 303 against the live frontend on that crop
+   (cosine > 0.99, median interior relative error < 0.05 over the entries
+   nonzero in either); MB, seconds.
+13. face train parity: phase 11 for the full-width face model at batch 4 on
+   cached features and lip vertices (18 attention launches each way).
+14. main path, training: ``apps.train_diffusion.train`` at the reference's
    pose operating point (DenoiserConfig() widths, flash attention and hash
-   dropout, raw audio through the frozen wav2vec frontend, batch 64, AdamW lr
-   1e-4, cond_drop_prob 0.2) for 4 steps on the synthetic person (attention
-   launches counted: 8 layers x 2 attentions x 4 steps, forward and
-   backward); the checkpoint sampled by ``generate`` (one DDIM-10 clip);
-   steps/s, peak memory, and one more step under torch.profiler for the
-   device time by kernel.
+   dropout, batch 64, AdamW lr 1e-4, cond_drop_prob 0.2, the loader's
+   fastdata reads) for 4 steps on raw audio through the frozen wav2vec
+   frontend, then 4 steps on the feature cache (attention launches counted
+   in each: 8 layers x 2 attentions x 4 steps, forward and backward); each
+   checkpoint sampled by ``generate`` (one DDIM-10 clip); steps/s, the
+   batch wait's share, peak memory, and one more step under torch.profiler
+   for the device time by kernel.
+15. main path, face training: ``train`` at the face operating point (the
+   face width, flash attention, hash dropout, f32, batch 64, cached
+   features, fastdata reads) for 4 steps: 18 attention launches a step
+   each way, losses finite, no skipped step, the checkpoint sampled by a
+   face ``generate`` (DDIM-10); steps/s, the batch wait's share, the cache
+   build, peak memory, the host batch's MB and assembly time, and the
+   device's idle share of a profiled step.
 
 Then one line with every kernel's numbers (the f32 attention rows' bound
 there is the 3xTF32 one, the arithmetic they do), the nvidia-smi line, and last
@@ -168,11 +195,31 @@ TRAIN_KERNEL_CASES = [
     (2, 3, 77, 203, 64, True),
 ]
 TRAIN_MAIN_CASE = (64, 4, 600, 2000, 64, False)  # the backward's numbers in the summary line
+# (B, H, Tq, Tk, Dh, plain_B): the face trainer's attention at batch 64, f32 with
+# dropout 0.1 (its cond-encoder's self-attention over the 1998 audio tokens, the
+# decoder's cross-attention to them and the two t-tokens, the decoder's
+# self-attention); the plain versions, whose [B, H, Tq, Tk] temporaries do not fit
+# at B64 for 1998 x 1998, run at plain_B
+TRAIN_FACE_KERNEL_CASES = [(64, 4, 1998, 1998, 128, 16), (64, 4, 600, 2000, 128, 64),
+                           (64, 4, 600, 600, 128, 64)]
+# the trainers' synthetic person: 12 scenes of 1790 frames (~60 s) each, 6 of them
+# in the train split (2 val, 4 test held out); 1790 frames make 5963 tokens, three
+# 2000-token cache segments, the last one partial, and 15 lip chunks, the last padded
+TRAIN_PERSON = dict(num_scenes=12, frames_per_scene=1790)
+CACHE_REL_TOL = 1e-5  # the feature cache, card vs CPU, of its largest magnitude
+# a cached crop against the live frontend on that crop (the JAX package's bar,
+# tests/test_feature_cache.py): the group norm spans the cache's segment; the
+# median runs over the entries that are nonzero in either (the last layer ends
+# in a ReLU, so about half of them are zero in both)
+CACHE_CROP_COS, CACHE_CROP_MEDIAN_REL = 0.99, 0.05
+CACHE_CROP = (303, 600)  # (start frame, frames) of that crop in scene 0: from mid-scene
 GRAD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # of the largest plain gradient
 TRAIN_DROPOUT = 0.1
 TRAIN_STEPS, TRAIN_BATCH = 4, 64
 LR = 1e-4
 GUIDE_REL_TOL = 1e-5  # guide logits and VQ decode, card vs CPU, of the largest magnitude
+FACE_WIDTH = dict(data_format="face", nfeats=256, latent_dim=512, ff_size=1024, num_layers=8, num_heads=4,
+                  flash_attention=True)
 
 
 def emit(phase: str, **fields) -> None:
@@ -628,7 +675,7 @@ def _pose_model(seed: int, **overrides):
     return cfg, model.eval()
 
 
-def _face_model(seed: int):
+def _face_model(seed: int, **overrides):
     """The face denoiser at the reference's face width: latent 512, 8
     layers, 4 heads (Dh 128), FF 1024, 256-d codes, with its lip regressor
     (wav2vec_large) and rotary cond-encoder; random weights from ``seed``."""
@@ -637,8 +684,7 @@ def _face_model(seed: int):
     from audio2photoreal_tpu_torch.core.config import DenoiserConfig
     from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
 
-    cfg = DenoiserConfig(data_format="face", nfeats=256, latent_dim=512, ff_size=1024, num_layers=8,
-                         num_heads=4, flash_attention=True)
+    cfg = DenoiserConfig(**{**FACE_WIDTH, **overrides})
     model = FiLMDenoiser(cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return cfg, model.eval()
@@ -1343,6 +1389,129 @@ def phase_train_kernels(seed: int) -> dict:
     return summary
 
 
+def _dropout_forward_by_rows(q, k, v, rate: float, seed: int, rows: int = 4):
+    """The plain forward with the explicit replayed mask, a few batch rows at
+    a time with the mask's block ids of those rows: the [B, H, Tq, Tk] mask
+    of a B64 1998 x 1998 call does not fit at once."""
+    import torch
+
+    from audio2photoreal_tpu_torch.kernels.flash_attn import hash_mask_mult, resolve_block_q
+
+    B, H, Tq, Dh = q.shape
+    Tk = k.shape[2]
+    bq = resolve_block_q(Tq, Tk)
+    nj = -(-Tq // bq)
+    i = torch.arange(Tq, device=q.device).reshape(1, 1, Tq, 1)
+    j = torch.arange(Tk, device=q.device).reshape(1, 1, 1, Tk)
+    out = []
+    for b0 in range(0, B, rows):
+        b1 = min(B, b0 + rows)
+        bh = torch.arange(b0 * H, b1 * H, device=q.device).reshape(b1 - b0, H, 1, 1)
+        mask = hash_mask_mult(seed, bh * nj + i // bq, i % bq, j, rate)
+        logits = torch.matmul(q[b0:b1], k[b0:b1].transpose(-1, -2)) * (1.0 / Dh ** 0.5)
+        out.append(torch.matmul(torch.softmax(logits, dim=-1) * mask, v[b0:b1]))
+        del mask, logits
+    return torch.cat(out)
+
+
+def phase_train_kernels_face(seed: int) -> list:
+    """The attention forward and backward at the face trainer's shapes (B64,
+    H4, Dh 128, f32, dropout 0.1): the mask exact at B64 (forward at rate 0.5
+    against the plain version row by row), forward and gradients against the
+    plain versions at ``plain_B``, the backward twice bit for bit, times of
+    the kernels at B64, of the plain versions at ``plain_B``, of SDPA's
+    forward and backward at B64 and rate 0, and the backward's peak memory
+    with its dQ-partial scratch."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio2photoreal_tpu_torch.kernels import flash_attn
+    from audio2photoreal_tpu_torch.kernels.flash_attn import (
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+        resolve_block_q,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    rows = []
+    for B, H, Tq, Tk, Dh, pB in TRAIN_FACE_KERNEL_CASES:
+        q, k, v, do, _ = _attn_inputs(g, B, H, Tq, Tk, Dh, False)
+        dseed = 2_000_003 + Tq + Tk
+        got = flash_attention(q, k, v, None, False, 0.5, dseed)
+        want = _dropout_forward_by_rows(q, k, v, 0.5, dseed)
+        torch.cuda.synchronize()
+        mask_err = (got - want).abs().max().item()
+        del got, want
+        if not mask_err <= TOL["float32"]:
+            raise AssertionError(f"the dropout forward disagrees with the explicit mask at B{B}: {mask_err}")
+        args = (None, False, TRAIN_DROPOUT, dseed)
+        # against the plain versions at plain_B (the kernel's mask numbering at that batch)
+        qp, kp, vp, dop = (x[:pB] for x in (q, k, v, do))
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qp, kp, vp))
+        out = flash_attention(qg, kg, vg, *args)
+        grads = torch.autograd.grad(out, (qg, kg, vg), dop)
+        want_out = flash_attention_reference(qp, kp, vp, *args)
+        want = flash_attention_bwd_reference(qp, kp, vp, dop, *args)
+        torch.cuda.synchronize()
+        fwd_err = (out.detach() - want_out).abs().max().item()
+        scale = max(w.abs().max().item() for w in want)
+        err = max((a - w).abs().max().item() for a, w in zip(grads, want))
+        del out, grads, want_out, want, qg, kg, vg
+        torch.cuda.empty_cache()
+        it = dict(iters=3, warmup=1)
+        plain_fwd_ms = _time_ms(lambda: flash_attention_reference(qp, kp, vp, *args), **it)
+        plain_bwd_ms = _time_ms(lambda: flash_attention_bwd_reference(qp, kp, vp, dop, *args), **it)
+        torch.cuda.empty_cache()
+        # the kernels at B64
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = flash_attention(qg, kg, vg, *args)
+        bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        first = bwd()
+        torch.cuda.synchronize()
+        bwd_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        identical = all(torch.equal(a, b) for a, b in zip(first, bwd()))
+        del first
+        scratch_gb = 4 * flash_attn.bwd_library().flash_attn_bwd_scratch_floats(B, H, Tq, Tk, Dh, 0) / 1e9
+        k1, k2 = _time_ms(bwd, **it), _time_ms(bwd, **it)
+        fk1 = _time_ms(lambda: flash_attention(q, k, v, *args), **it)
+        fk2 = _time_ms(lambda: flash_attention(q, k, v, *args), **it)
+        fn = _time_ms(lambda: flash_attention(q, k, v), **it)
+        del out, qg, kg, vg
+        torch.cuda.empty_cache()
+        ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+        lib_bwd = _time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True), **it)
+        lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v), **it)
+        del lib_out, ql, kl, vl
+        # forward: q, k, v read, out written; backward: q, k, v, dO, O, lse read, dq, dk, dv written
+        fwd_bytes = 4 * (2 * B * H * Tq * Dh + 2 * B * H * Tk * Dh)
+        bwd_bytes = 4 * (3 * B * H * Tq * Dh + 2 * B * H * Tk * Dh) + 4 * B * H * Tq + 4 * (
+            B * H * Tq * Dh + 2 * B * H * Tk * Dh)
+        fwd_bound, fwd_by = _bound(fwd_bytes, 4.0 * B * H * Tq * Tk * Dh, "tf32x3")
+        bwd_bound, bwd_by = _bound(bwd_bytes, 10.0 * B * H * Tq * Tk * Dh, "tf32x3")
+        bq = resolve_block_q(Tq, Tk)
+        row = dict(B=B, H=H, Tq=Tq, Tk=Tk, Dh=Dh, dtype="float32", dropout=TRAIN_DROPOUT,
+                   jax_block_q=bq, jax_q_blocks=-(-Tq // bq), fwd_split=flash_attn.fwd_split(B, H, Tq, Tk, Dh),
+                   mask_rate05_max_abs_err_B64=mask_err, plain_B=pB, fwd_max_abs_err=fwd_err,
+                   max_abs_err=err, grad_scale=scale, tol=GRAD_TOL["float32"] * scale,
+                   bitwise_deterministic=identical, ms=(k1 + k2) / 2, plain_ms_at_plain_B=plain_bwd_ms,
+                   library_ms=lib_bwd, fwd_dropout_ms=(fk1 + fk2) / 2, fwd_no_dropout_ms=fn,
+                   fwd_plain_ms_at_plain_B=plain_fwd_ms, fwd_library_ms=lib_fwd,
+                   bound_ms=bwd_bound, bound_by=bwd_by, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+                   bwd_peak_gb=bwd_peak_gb, dq_scratch_gb=scratch_gb)
+        emit("kernel_vs_plain_face_train", kernel="flash_attn_fwd+flash_attn_bwd", **row)
+        if not (err <= GRAD_TOL["float32"] * scale and fwd_err <= TOL["float32"] and identical):
+            raise AssertionError(f"the attention kernels disagree at a face training shape: {row}")
+        rows.append(row)
+        del q, k, v, do, qp, kp, vp, dop
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _train_batch(rng, B, T):
     import numpy as np
 
@@ -1355,11 +1524,13 @@ def _train_batch(rng, B, T):
             "keyframes": rng.randn(B, kv.shape[1], 104).astype(np.float32), "keyframe_valid": kv}
 
 
-def phase_train_parity(seed: int) -> None:
-    """One deterministic full-width train step, card against CPU (phase 10)."""
+def _step_parity(phase: str, cfg, model_cpu, batch: dict, t, noise, want_launches: int) -> None:
+    """One deterministic train step (fixed t and noise, dropout and guidance
+    dropout off) from the same weights on the card (kernels) and on the CPU
+    (plain versions): loss, every gradient, params after AdamW; the
+    attention kernels' launches on the card."""
     import copy
 
-    import numpy as np
     import torch
 
     from audio2photoreal_tpu_torch.core.config import DiffusionConfig, TrainConfig
@@ -1368,13 +1539,7 @@ def phase_train_parity(seed: int) -> None:
     from audio2photoreal_tpu_torch.train.loops import diffusion_train_step
     from audio2photoreal_tpu_torch.train.state import TrainState
 
-    cfg, model_cpu = _pose_model(seed, hash_dropout=True)
     model_gpu = copy.deepcopy(model_cpu).cuda()
-    rng = np.random.RandomState(seed + 2)
-    B, T = 4, cfg.max_seq_length
-    batch = _train_batch(rng, B, T)
-    t = np.array([0, 250, 600, 999])
-    noise = rng.randn(B, T, cfg.nfeats).astype(np.float32)
     dcfg = DiffusionConfig(cond_drop_prob=0.0)
     out, secs = {}, {}
     for device, model in (("cuda", model_gpu), ("cpu", model_cpu)):
@@ -1394,15 +1559,135 @@ def phase_train_parity(seed: int) -> None:
     loss_rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
     grad_rel = max((gg[n] - gc[n]).abs().max().item() / max(gc[n].abs().max().item(), 1e-30) for n in gc)
     d = torch.cat([(pg[n] - pc[n]).abs().flatten() for n in pc])
-    row = dict(batch=B, latent=cfg.latent_dim, layers=cfg.num_layers, t=t.tolist(), loss_gpu=mg["loss"],
-               loss_cpu=mc["loss"], loss_rel_err=loss_rel, grad_max_rel_err=grad_rel,
-               grads_compared=len(gc), same_grad_names=sorted(gg) == sorted(gc),
+    row = dict(data_format=cfg.data_format, batch=len(t), latent=cfg.latent_dim, layers=cfg.num_layers,
+               inputs=sorted(batch), t=t.tolist(), loss_gpu=mg["loss"], loss_cpu=mc["loss"], loss_rel_err=loss_rel,
+               grad_max_rel_err=grad_rel, grads_compared=len(gc), same_grad_names=sorted(gg) == sorted(gc),
                param_max_abs_diff=d.max().item(), param_share_within_1e6=(d <= 1e-6).float().mean().item(),
-               kernel_launches_fwd_bwd=list(lg), cpu_launches=list(lc), gpu_s=secs["cuda"], cpu_s=secs["cpu"])
-    emit("train_parity", **row)
+               kernel_launches_fwd_bwd=list(lg), expected_launches=want_launches, cpu_launches=list(lc),
+               gpu_s=secs["cuda"], cpu_s=secs["cpu"])
+    emit(phase, **row)
     if not (loss_rel <= 1e-5 and grad_rel <= 1e-4 and row["same_grad_names"] and d.max().item() <= 2 * LR
-            and row["param_share_within_1e6"] >= 0.999 and lg == (2 * cfg.num_layers,) * 2 and lc == (0, 0)):
+            and row["param_share_within_1e6"] >= 0.999 and lg == (want_launches,) * 2 and lc == (0, 0)):
         raise AssertionError(f"card and CPU disagree on the train step: {row}")
+
+
+def phase_train_parity(seed: int) -> None:
+    """One deterministic full-width pose train step, card against CPU (phase 11)."""
+    import numpy as np
+
+    cfg, model_cpu = _pose_model(seed, hash_dropout=True)
+    rng = np.random.RandomState(seed + 2)
+    B, T = 4, cfg.max_seq_length
+    batch = _train_batch(rng, B, T)
+    t = np.array([0, 250, 600, 999])
+    noise = rng.randn(B, T, cfg.nfeats).astype(np.float32)
+    _step_parity("train_parity", cfg, model_cpu, batch, t, noise, 2 * cfg.num_layers)
+
+
+def phase_train_parity_face(seed: int) -> None:
+    """One deterministic full-width face train step at batch 4 on cached
+    features (wav2vec features and per-frame lip vertices), card against CPU
+    (phase 13): the cond-encoder's 2 and the decoder's 16 attentions through
+    the kernels, forward and backward."""
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
+
+    cfg, model_cpu = _face_model(seed, hash_dropout=True)
+    rng = np.random.RandomState(seed + 6)
+    B, T = 4, cfg.max_seq_length
+    lengths = np.array([T, T, 450, 333], np.int32)
+    mask = (np.arange(T)[None] < lengths[:, None]).astype(np.float32)
+    mask[0, 100:140] = 0.0  # missing face frames inside the valid length
+    batch = {"motion": rng.randn(B, T, cfg.nfeats).astype(np.float32) * mask[..., None], "mask": mask,
+             "lengths": lengths,
+             "audio_features": rng.rand(B, tokens_for_frames(T), 1024).astype(np.float32),
+             "lip_verts": rng.randn(B, T, 1014).astype(np.float32)}
+    t = np.array([0, 250, 600, 999])
+    noise = rng.randn(B, T, cfg.nfeats).astype(np.float32)
+    _step_parity("train_parity_face", cfg, model_cpu, batch, t, noise,
+                 cfg.cond_encoder_layers + 2 * cfg.num_layers)
+
+
+def _train_person(seed: int) -> str:
+    """The trainers' synthetic person (``TRAIN_PERSON``), made once."""
+    from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
+
+    root = os.path.join(WORK, "train_data")
+    if not os.path.isdir(os.path.join(root, "SYNTH01")):
+        make_synthetic_person(root, "SYNTH01", seed=seed, **TRAIN_PERSON)
+    return root
+
+
+def phase_feature_cache(seed: int):
+    """The frozen-frontend feature cache of the full-width face model over
+    the train split, built on the card (phase 12): scene 0 against the same
+    build on the CPU (features, lip vertices, both silences, within
+    ``CACHE_REL_TOL`` of their scale); a crop from mid-scene against the live
+    frontend on that crop; MB and build seconds.  Returns (cache, index,
+    stats) for the face trainer's profiled step."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.apps.generate import find_stats
+    from audio2photoreal_tpu_torch.data.dataset import read_wav
+    from audio2photoreal_tpu_torch.data.feature_cache import (
+        build_audio_feature_cache,
+        build_cache_for_index,
+        make_frontend_apply,
+        make_lip_apply,
+        tokens_for_frames,
+    )
+    from audio2photoreal_tpu_torch.data.loader import SceneIndex
+
+    root = _train_person(seed)
+    cfg, model_cpu = _face_model(seed)
+    model = copy.deepcopy(model_cpu).cuda()
+    index = SceneIndex(root, "SYNTH01", "train")
+    stats = find_stats(os.path.join(root, "SYNTH01"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = build_cache_for_index(index, stats.norm_audio, make_frontend_apply(model.audio_model),
+                                  make_lip_apply(model.lip_model), verbose=False)
+    build_s = time.perf_counter() - t0
+    base, frames = index.entries[0]
+    raw = read_wav(base + "_audio.wav")[: frames * 1600]
+    t0 = time.perf_counter()
+    cpu = build_audio_feature_cache(make_frontend_apply(model_cpu.audio_model), [raw], stats.norm_audio,
+                                    lip_apply=make_lip_apply(model_cpu.lip_model), verbose=False)
+    cpu_s = time.perf_counter() - t0
+
+    def rel(a, b):  # of b's largest magnitude (an all-zero silence vector: absolute)
+        return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+    errs = {"features": rel(cache.features[0], cpu.features[0]), "lip": rel(cache.lip[0], cpu.lip[0]),
+            "silence": rel(cache.silence, cpu.silence), "lip_silence": rel(cache.lip_silence, cpu.lip_silence)}
+    # a crop from mid-scene against the live frontend on exactly that crop
+    start, L = CACHE_CROP
+    crop = stats.norm_audio(raw[start * 1600 : (start + L) * 1600]).astype(np.float32)
+    with torch.no_grad():
+        exact = model.audio_model(torch.from_numpy(crop[None]).cuda())[0].cpu().numpy()
+    cached = cache.window(0, start, L, tokens_for_frames(L))
+    a, b = cached.ravel(), exact.ravel()
+    cos = float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-9))
+    ci, ei = cached[5:-2], exact[5:-2]
+    nonzero = (ci != 0) | (ei != 0)
+    median_rel = float(np.median(np.abs(ci - ei)[nonzero] / (np.abs(ei[nonzero]) + 1e-2)))
+    row = dict(scenes=len(index.entries), frames=[f for _, f in index.entries],
+               tokens=[int(f.shape[0]) for f in cache.features], cache_mb=cache.nbytes() / 1e6,
+               build_s_card=build_s, scene0_build_s_cpu=cpu_s, rel_err=errs, rel_tol=CACHE_REL_TOL,
+               crop=[start, L], crop_cosine=cos, crop_median_rel_err=median_rel,
+               crop_nonzero_share=float(nonzero.mean()),
+               crop_bar=[CACHE_CROP_COS, CACHE_CROP_MEDIAN_REL])
+    emit("feature_cache", **row)
+    if not (max(errs.values()) <= CACHE_REL_TOL and cos > CACHE_CROP_COS and median_rel < CACHE_CROP_MEDIAN_REL
+            and cache.features[0].shape == cpu.features[0].shape):
+        raise AssertionError(f"the feature cache checks failed: {row}")
+    del model, model_cpu
+    torch.cuda.empty_cache()
+    return cache, index, stats
 
 
 def _profile_step(state, sched, dcfg, batch) -> dict:
@@ -1438,78 +1723,150 @@ def _profile_step(state, sched, dcfg, batch) -> dict:
                 cudnn_conv_fprop_ms=group("fprop_implicit_gemm"), top_kernels_ms=[[k[:90], v] for k, v in top])
 
 
-def phase_main_path_train(seed: int, smi: str):
-    """``train()`` at the reference's pose operating point (phase 11); the
-    backward kernel's launches on it."""
-    import dataclasses
-
+def _train_run(name: str, root: str, mcfg, datacfg, seed: int, cached: bool) -> dict:
+    """``train()`` for ``TRAIN_STEPS`` steps from a clean save dir with the
+    launch counts at 0; its checks and numbers.  The batches come through
+    the fastdata reads."""
     import numpy as np
     import torch
 
-    from audio2photoreal_tpu_torch.apps.generate import generate
     from audio2photoreal_tpu_torch.apps.train_diffusion import train
-    from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, TrainConfig
-    from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
+    from audio2photoreal_tpu_torch.core.config import DiffusionConfig, TrainConfig
     from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts
     from audio2photoreal_tpu_torch.train import checkpoints
 
-    person = "SYNTH01"
-    root = os.path.join(WORK, "train_data")
-    save_dir = os.path.join(WORK, "train_run")
-    shutil.rmtree(root, ignore_errors=True)
+    save_dir = os.path.join(WORK, name)
     shutil.rmtree(save_dir, ignore_errors=True)
-    make_synthetic_person(root, person, num_scenes=8, frames_per_scene=600, seed=seed)
-    mcfg = DenoiserConfig(data_format="pose", flash_attention=True, hash_dropout=True)
-    dcfg = DiffusionConfig()
-    datacfg = DataConfig(person=person, batch_size=TRAIN_BATCH, max_seq_length=mcfg.max_seq_length)
     tcfg = TrainConfig(lr=LR, num_steps=TRAIN_STEPS, log_interval=1, save_interval=10**9, seed=seed)
     timings: dict = {}
-
-    launch_counts.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    launch_counts.clear()
     t0 = time.perf_counter()
-    state = train(root, save_dir, mcfg, dcfg, datacfg, tcfg, device="cuda", timings=timings)
+    state = train(root, save_dir, mcfg, DiffusionConfig(), datacfg, tcfg, cache_audio_features=cached,
+                  device="cuda", timings=timings, reader="fastdata")
     train_s = time.perf_counter() - t0
     fwd, bwd = launch_counts[flash_attn.NAME], launch_counts[flash_attn.BWD_NAME]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    steps_done = state.step
-
     logged = [json.loads(l) for l in open(os.path.join(save_dir, "log.jsonl"))]
-    steady = timings["step_s"][1:]
-    per_step = 2 * mcfg.num_layers
-    # the saved model samples: one DDIM-10 clip through generate
-    res = np.load(generate(save_dir, root, num_samples=1, timestep_respacing="ddim10", device="cuda",
-                           output_dir=os.path.join(WORK, "train_samples")), allow_pickle=True).item()
-    # one more step under the profiler, on a batch of the same shapes
-    from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
-    from audio2photoreal_tpu_torch.apps.generate import find_stats
-    from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
-
-    ds = SocialDataset(load_local_data(root, person), find_stats(os.path.join(root, person)), datacfg, "train")
-    batch = {k: torch.from_numpy(np.asarray(v)).to("cuda") for k, v in
-             ds.sample_batch(np.random.RandomState(seed), TRAIN_BATCH).items()}
-    prof = _profile_step(state, make_schedule().to_device("cuda"), dcfg, batch)
-
+    steady, waits = timings["step_s"][1:], timings["batch_s"][1:]
+    per_step = (mcfg.cond_encoder_layers if mcfg.data_format == "face" else 0) + 2 * mcfg.num_layers
     checks = {
         "losses_finite": len(logged) == TRAIN_STEPS and all(np.isfinite(r["loss"]) for r in logged),
-        "no_skipped_step": steps_done == TRAIN_STEPS and all(r["skipped_nonfinite"] == 0 for r in logged),
+        "no_skipped_step": state.step == TRAIN_STEPS and all(r["skipped_nonfinite"] == 0 for r in logged),
         "checkpoint_written": checkpoints.latest_step(os.path.join(save_dir, "ckpt")) == TRAIN_STEPS
         and os.path.exists(os.path.join(save_dir, checkpoints.MODEL_FILE)),
         "attention_fwd_launches": fwd == per_step * TRAIN_STEPS,
         "attention_bwd_launches": bwd == per_step * TRAIN_STEPS,
-        "generate_from_checkpoint": list(res["motions"].shape) == [1, mcfg.nfeats, 1, mcfg.max_seq_length]
-        and bool(np.isfinite(res["motions"]).all()),
+        "reader_fastdata": timings["reader"] == "fastdata",
     }
-    emit("main_path_train", nvidia_smi=smi, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
-         config=dataclasses.asdict(mcfg), train_s=train_s, step_s=timings["step_s"], batch_s=timings["batch_s"],
-         steady_step_ms=1e3 * sum(steady) / len(steady), steady_steps_per_s=len(steady) / sum(steady),
-         steady_batch_share=sum(timings["batch_s"][1:]) / sum(steady), peak_memory_gb=peak_gb,
-         device_idle_share_of_steady_step=1.0 - prof["device_ms"] / (1e3 * sum(steady) / len(steady)),
-         losses=[r["loss"] for r in logged], grad_norms=[r["grad_norm"] for r in logged],
-         kernel_launches_fwd=fwd, kernel_launches_bwd=bwd, **prof, checks=checks)
-    if not all(checks.values()):
-        raise AssertionError(f"main path (train) checks failed: {checks}")
-    return fwd, bwd
+    return dict(state=state, save_dir=save_dir, fwd=fwd, bwd=bwd, checks=checks, numbers=dict(
+        cached=cached, reader=timings["reader"], cache_s=timings.get("cache_s"), train_s=train_s,
+        step_s=timings["step_s"], batch_s=timings["batch_s"], steady_step_ms=1e3 * sum(steady) / len(steady),
+        steady_steps_per_s=len(steady) / sum(steady), steady_batch_share=sum(waits) / sum(steady),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, losses=[r["loss"] for r in logged],
+        grad_norms=[r["grad_norm"] for r in logged], kernel_launches_fwd=fwd, kernel_launches_bwd=bwd,
+        launches_per_step=per_step))
+
+
+def _device_batch(batch: dict) -> dict:
+    import numpy as np
+    import torch
+
+    return {k: torch.from_numpy(np.asarray(v)).to("cuda") for k, v in batch.items()}
+
+
+def phase_main_path_train(seed: int, smi: str) -> dict:
+    """``train()`` at the reference's pose operating point (phase 14), on raw
+    audio and on the feature cache; each checkpoint sampled; one more step of
+    each under the profiler."""
+    import dataclasses
+
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.apps.generate import find_stats, generate
+    from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig
+    from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
+    from audio2photoreal_tpu_torch.data.loader import FastLoader, SceneIndex
+    from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
+
+    person, root = "SYNTH01", _train_person(seed)
+    mcfg = DenoiserConfig(data_format="pose", flash_attention=True, hash_dropout=True)
+    datacfg = DataConfig(person=person, batch_size=TRAIN_BATCH, max_seq_length=mcfg.max_seq_length)
+    runs = {}
+    for variant, cached in (("raw", False), ("cached", True)):
+        runs[variant] = run = _train_run(f"train_run_{variant}", root, mcfg, datacfg, seed, cached)
+        # the saved model samples: one DDIM-10 clip through generate
+        res = np.load(generate(run["save_dir"], root, num_samples=1, timestep_respacing="ddim10", device="cuda",
+                               output_dir=os.path.join(WORK, f"train_samples_{variant}")), allow_pickle=True).item()
+        run["checks"]["generate_from_checkpoint"] = (
+            list(res["motions"].shape) == [1, mcfg.nfeats, 1, mcfg.max_seq_length]
+            and bool(np.isfinite(res["motions"]).all()))
+        # one more step under the profiler, on a batch of the same shapes
+        loader = FastLoader(SceneIndex(root, person), find_stats(os.path.join(root, person)), datacfg,
+                            reader="fastdata")
+        batch = loader.sample_batch(TRAIN_BATCH, np.random.RandomState(seed))
+        if cached:  # features in place of the audio (their values do not change the work)
+            del batch["audio"]
+            batch["audio_features"] = np.random.RandomState(seed).rand(
+                TRAIN_BATCH, tokens_for_frames(mcfg.max_seq_length), 1024).astype(np.float32)
+        prof = _profile_step(run["state"], make_schedule().to_device("cuda"), DiffusionConfig(), _device_batch(batch))
+        n = run["numbers"]
+        emit("main_path_train", nvidia_smi=smi, variant=variant, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+             config=dataclasses.asdict(mcfg), **n,
+             device_idle_share_of_steady_step=1.0 - prof["device_ms"] / n["steady_step_ms"], **prof,
+             checks=run["checks"])
+        if not all(run["checks"].values()):
+            raise AssertionError(f"main path (train, {variant}) checks failed: {run['checks']}")
+        del run["state"]
+    emit("main_path_train_pose_steps_per_s", nvidia_smi=smi,
+         raw=runs["raw"]["numbers"]["steady_steps_per_s"], cached=runs["cached"]["numbers"]["steady_steps_per_s"],
+         raw_batch_share=runs["raw"]["numbers"]["steady_batch_share"],
+         cached_batch_share=runs["cached"]["numbers"]["steady_batch_share"],
+         cache_s=runs["cached"]["numbers"]["cache_s"])
+    return {v: (r["fwd"], r["bwd"]) for v, r in runs.items()}
+
+
+def phase_main_path_train_face(seed: int, smi: str, cache, index, stats):
+    """``train()`` at the reference's face operating point (phase 15): the
+    full face width, flash attention, hash dropout, f32, batch 64, cached
+    features through the fastdata reads; 18 attention launches a step each
+    way (2 cond-encoder, 8 layers x 2); a face ``generate`` (DDIM-10) from the
+    checkpoint; one more step under the profiler on a batch from the feature
+    cache phase's cache."""
+    import dataclasses
+
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.apps.generate import generate
+    from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig
+    from audio2photoreal_tpu_torch.data.loader import FastLoader
+    from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
+
+    person, root = "SYNTH01", _train_person(seed)
+    mcfg = DenoiserConfig(**FACE_WIDTH, hash_dropout=True)
+    datacfg = DataConfig(person=person, data_format="face", batch_size=TRAIN_BATCH,
+                         max_seq_length=mcfg.max_seq_length)
+    run = _train_run("train_run_face", root, mcfg, datacfg, seed, cached=True)
+    res = np.load(generate(run["save_dir"], root, num_samples=1, timestep_respacing="ddim10", device="cuda",
+                           output_dir=os.path.join(WORK, "train_samples_face")), allow_pickle=True).item()
+    run["checks"]["generate_from_checkpoint"] = (
+        list(res["motions"].shape) == [1, mcfg.nfeats, 1, mcfg.max_seq_length]
+        and bool(np.isfinite(res["motions"]).all()))
+    loader = FastLoader(index, stats, datacfg, feature_cache=cache, reader="fastdata")
+    t0 = time.perf_counter()
+    batch = loader.sample_batch(TRAIN_BATCH, np.random.RandomState(seed))
+    assemble_s = time.perf_counter() - t0
+    host_mb = sum(v.nbytes for v in batch.values()) / 1e6
+    prof = _profile_step(run["state"], make_schedule().to_device("cuda"), DiffusionConfig(), _device_batch(batch))
+    n = run["numbers"]
+    emit("main_path_train_face", nvidia_smi=smi, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+         config=dataclasses.asdict(mcfg), **n, batch_host_mb=host_mb, batch_assemble_s=assemble_s,
+         device_idle_share_of_steady_step=1.0 - prof["device_ms"] / n["steady_step_ms"], **prof,
+         checks=run["checks"])
+    if not all(run["checks"].values()):
+        raise AssertionError(f"main path (train, face) checks failed: {run['checks']}")
+    return run["fwd"], run["bwd"]
 
 
 def main() -> None:
@@ -1531,8 +1888,15 @@ def main() -> None:
     phase_guide_parity(args.seed)
     launches = phase_main_path(args.seed, smi)
     bwd = phase_train_kernels(args.seed)
+    phase_train_kernels_face(args.seed)
     phase_train_parity(args.seed)
-    train_fwd, train_bwd = phase_main_path_train(args.seed, smi)
+    cache, index, stats = phase_feature_cache(args.seed)
+    phase_train_parity_face(args.seed)
+    train = phase_main_path_train(args.seed, smi)
+    train["face"] = phase_main_path_train_face(args.seed, smi, cache, index, stats)
+    del cache
+    train_fwd = {path: counts[0] for path, counts in train.items()}
+    train_bwd = {path: counts[1] for path, counts in train.items()}
 
     import torch
 
@@ -1546,14 +1910,16 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": flash_attn.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_fwd.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:124",
-         "launches": launches[flash_attn.NAME] + launches["face"] + train_fwd,
-         "launches_by_path": {"generate": launches[flash_attn.NAME], "face": launches["face"], "train": train_fwd},
+         "launches": launches[flash_attn.NAME] + launches["face"] + sum(train_fwd.values()),
+         "launches_by_path": {"generate": launches[flash_attn.NAME], "face": launches["face"],
+                              **{f"train_{path}": n for path, n in train_fwd.items()}},
          "dropout": "replayed hash mask in the kernel (training); these numbers are at rate 0",
          "arithmetic": "3xTF32 on mma.sync m16n8k8 (f32); bound_ms at 495/3 TFLOP/s",
          **{k: attn[k] for k in attn_keys}, **tc(attn)},
         {"name": flash_attn.BWD_NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_bwd.cu",
-         "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:157", "launches": train_bwd,
-         "launches_by_path": {"train": train_bwd}, "dropout": bwd["dropout"], "shape": [
+         "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:157", "launches": sum(train_bwd.values()),
+         "launches_by_path": {f"train_{path}": n for path, n in train_bwd.items()},
+         "dropout": bwd["dropout"], "shape": [
              bwd[k] for k in ("B", "H", "Tq", "Tk", "Dh")],
          "arithmetic": "3xTF32 on mma.sync m16n8k8 (f32); bound_ms at 495/3 TFLOP/s",
          **{k: bwd[k] for k in attn_keys}, **tc(bwd)},

@@ -142,6 +142,7 @@ DROP_CASES = [  # (Tq, Tk, kv_valid lengths, causal, block_q): nj >= 2 in all bu
     (40, 150, (120, 150), False, None),
     (40, 150, (150, 150), True, 16),
     (24, 200, (170, 200), True, 8),
+    (50, 50, (50, 37), False, 16),  # self-attention with a ragged last q-block (50 = 3 x 16 + 2)
 ]
 
 

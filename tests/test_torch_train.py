@@ -20,6 +20,7 @@ a near-zero gradient's sign can differ) and 99.9% of them within 1e-6.
 """
 
 import copy
+import json
 import os
 
 import jax
@@ -42,6 +43,7 @@ from audio2photoreal_tpu_torch import convert
 from audio2photoreal_tpu_torch.apps import train_diffusion
 from audio2photoreal_tpu_torch.apps.generate import generate
 from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, TrainConfig
+from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
 from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
 from audio2photoreal_tpu_torch.diffusion import gaussian, losses, tsample
 from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
@@ -150,6 +152,101 @@ def test_step_gradients_match_jax(step_parity):
 def test_params_after_one_adamw_step_match_jax(step_parity):
     s = step_parity
     want = convert.film_denoiser_state_dict_from_jax(s["jparams_after"], "pose", MODEL["num_layers"])
+    diffs = []
+    for name, p in s["pm"].named_parameters():
+        d = np.abs(_np(p) - _np(want[name])).ravel()
+        assert d.max() <= 2 * LR, name
+        diffs.append(d)
+    d = np.concatenate(diffs)
+    assert (d <= 1e-6).mean() >= 0.999, (d > 1e-6).sum()
+
+
+# ------------------------------------------------- the face step vs JAX -- #
+
+TF = 129  # a multiple of 3 (the cache's grid) above the 128 gate: 428 cond tokens
+FACE = dict(data_format="face", nfeats=256, latent_dim=64, ff_size=128, num_layers=2, num_heads=2,
+            max_seq_length=TF, flash_attention=True, dropout=0.1, hash_dropout=True)
+
+
+def _face_batch(cached, B=2, seed=8):
+    """A face batch: frames 40-49 of sample 0 missing (``mask`` 0), sample 1
+    100 frames long; raw audio, or features and per-frame lip vertices."""
+    rng = np.random.RandomState(seed)
+    lengths = np.array([TF, 100], np.int32)
+    mask = (np.arange(TF)[None] < lengths[:, None]).astype(np.float32)
+    mask[0, 40:50] = 0.0
+    b = {"motion": rng.randn(B, TF, 256).astype(np.float32) * mask[..., None], "mask": mask, "lengths": lengths}
+    if cached:
+        b["audio_features"] = rng.rand(B, tokens_for_frames(TF), 1024).astype(np.float32)
+        b["lip_verts"] = rng.randn(B, TF, 1014).astype(np.float32)
+    else:
+        b["audio"] = (rng.randn(B, TF * 1600, 2) * 0.3).astype(np.float32)
+    return b
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["raw", "cached"])
+def face_step_parity(request):
+    """One deterministic face step on both sides from the same weights,
+    batch, t and noise, on raw audio (the frozen frontends in the step) or
+    on cached features."""
+    cached = request.param
+    pm = FiLMDenoiser(DenoiserConfig(**FACE))
+    pm.reset_parameters(torch.Generator().manual_seed(2))
+    rng = np.random.RandomState(3)
+    with torch.no_grad():
+        for p in pm.parameters():
+            if p.dim() == 1:
+                p.add_(torch.from_numpy(0.1 * rng.randn(*p.shape).astype(np.float32)))
+    jparams = convert_film_denoiser({k: v.clone() for k, v in pm.state_dict().items()}, "face", FACE["num_layers"])
+    b = _face_batch(cached)
+    t = np.array([120, 700])
+    noise = rng.randn(2, TF, 256).astype(np.float32)
+    jm = JDenoiser(j_config.DenoiserConfig(**FACE))
+    jsched = j_make_schedule("cosine", 1000)
+    get = lambda k: jnp.asarray(b[k]) if k in b else None  # noqa: E731
+
+    def loss_fn(params):
+        x0, tt = jnp.asarray(b["motion"]), jnp.asarray(t, jnp.int32)
+        xt = j_gaussian.q_sample(jsched, x0, tt, jnp.asarray(noise))
+        out = jm.apply(params, xt, tt, get("audio"), cond_drop_prob=0.0, deterministic=True,
+                       audio_features=get("audio_features"), lip_verts=get("lip_verts"))
+        terms = j_losses.training_losses(jsched, "xstart", out, x0, xt, tt, jnp.asarray(b["mask"])[..., None])
+        return terms["loss"].mean(), terms
+
+    j_flash.reset_trace_flops()
+    (jloss, jterms), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(jparams)
+    assert j_flash.trace_flops() > 0  # the JAX side went through the Pallas kernels
+    jstate = j_state.create_train_state(jparams, j_config.TrainConfig(lr=LR)).apply_gradients(jgrads)
+
+    state = TrainState(pm.eval(), TrainConfig(lr=LR))
+    metrics, _ = diffusion_train_step(state, make_schedule().to_device("cpu"), DiffusionConfig(cond_drop_prob=0.0),
+                                      _torch_batch(b), t=torch.from_numpy(t), noise=torch.from_numpy(noise))
+    return dict(pm=pm, metrics=metrics, jloss=float(jloss), jterms=jterms, jgrads=jgrads,
+                jparams_after=jstate.params)
+
+
+def test_face_step_loss_matches_jax(face_step_parity):
+    test_step_loss_matches_jax(face_step_parity)
+
+
+def test_face_step_gradients_match_jax(face_step_parity):
+    s = face_step_parity
+    want = convert.film_denoiser_state_dict_from_jax(s["jgrads"], "face", FACE["num_layers"])
+    pm = s["pm"]
+    trainable = {id(p) for p in trainable_parameters(pm)}
+    assert any(n.startswith("cond_encoder.") and id(p) in trainable for n, p in pm.named_parameters())
+    for name, p in pm.named_parameters():
+        if id(p) not in trainable:  # the frozen frontends: no gradient on either side
+            assert name.startswith(("audio_model.", "lip_model.")), name
+            assert p.grad is None and not want[name].abs().max() > 0, name
+            continue
+        got, w = _np(p.grad), _np(want[name])
+        np.testing.assert_allclose(got, w, atol=1e-4 * np.abs(w).max(), rtol=0, err_msg=name)
+
+
+def test_face_params_after_one_adamw_step_match_jax(face_step_parity):
+    s = face_step_parity
+    want = convert.film_denoiser_state_dict_from_jax(s["jparams_after"], "face", FACE["num_layers"])
     diffs = []
     for name, p in s["pm"].named_parameters():
         d = np.abs(_np(p) - _np(want[name])).ravel()
@@ -430,12 +527,59 @@ def test_train_runs_on_the_card_by_default(person, tmp_path, monkeypatch):
 
 def test_train_refuses_what_is_not_ported(person, tmp_path):
     kw = dict(device="cpu")
-    with pytest.raises(NotImplementedError, match="face"):
-        train_diffusion.train(person, str(tmp_path), DenoiserConfig(data_format="face"), DiffusionConfig(),
-                              DataConfig(), TrainConfig(), **kw)
-    with pytest.raises(NotImplementedError, match="feature cache"):
-        _train(person, str(tmp_path), 1, cache_audio_features=True, **kw)
+    for bad in (dict(dtype="bfloat16"), dict(frontend_dtype="bfloat16"), dict(remat=True)):
+        with pytest.raises(NotImplementedError, match="bf16|remat"):
+            train_diffusion.train(person, str(tmp_path), DenoiserConfig(**{**TINY, **bad}), DiffusionConfig(),
+                                  DataConfig(person="SYNTH01", max_seq_length=T), TrainConfig(), **kw)
+    with pytest.raises(ValueError, match="reader"):
+        _train(person, str(tmp_path), 1, reader="c", **kw)
     for name in ("TensorboardPlatform", "ClearmlPlatform"):
         with pytest.raises(NotImplementedError):
             logging.create_platform(name, str(tmp_path))
     assert isinstance(logging.create_platform("NoPlatform", None), logging.NoPlatform)
+
+
+# ------------------------------------------------- the face trainer -- #
+
+
+FACE_TINY = dict(data_format="face", nfeats=256, latent_dim=32, ff_size=64, num_layers=1, num_heads=1,
+                 cond_encoder_layers=1, max_seq_length=TF, flash_attention=True, hash_dropout=True)
+
+
+@pytest.fixture(scope="module")
+def face_person(tmp_path_factory):
+    """Seven scenes: one in the train split, whose cache a face run builds."""
+    root = str(tmp_path_factory.mktemp("train_face"))
+    make_synthetic_person(root, "SYNTH01", num_scenes=7, frames_per_scene=TF, seed=4)
+    return root
+
+
+def _train_face(root, save_dir, num_steps, timings=None, **kw):
+    return train_diffusion.train(
+        root, save_dir, DenoiserConfig(**FACE_TINY), DiffusionConfig(),
+        DataConfig(person="SYNTH01", data_format="face", max_seq_length=TF, min_seq_length=90, batch_size=2),
+        TrainConfig(num_steps=num_steps, log_interval=1, save_interval=1000, seed=6), cache_audio_features=True,
+        device="cpu", timings=timings, **kw)
+
+
+def test_face_train_on_the_cache_resumes_and_samples(face_person, tmp_path):
+    """Face ``train()`` on cached features: a checkpoint, a resumed run equal
+    to an uninterrupted one (each run builds the cache from its weights as
+    resumed; the frontends are frozen, so the caches agree), and ``generate``
+    samples the face checkpoint."""
+    run = str(tmp_path / "run")
+    timings = {}
+    state = _train_face(face_person, run, 2, timings, reader="numpy")
+    assert state.step == 2 and timings["reader"] == "numpy" and timings["cache_s"] > 0
+    assert len(timings["batch_s"]) == len(timings["step_s"]) == 2
+    assert checkpoints.latest_step(os.path.join(run, "ckpt")) == 2
+    state = _train_face(face_person, run, 3)
+    assert state.step == 3
+    logged = [json.loads(l) for l in open(os.path.join(run, "log.jsonl"))]
+    assert [r["step"] for r in logged] == [0, 1, 2] and all(np.isfinite(r["loss"]) for r in logged)
+    straight = _train_face(face_person, str(tmp_path / "straight"), 3)
+    for (name, a), b in zip(state.model.state_dict().items(), straight.model.state_dict().values()):
+        assert torch.equal(a, b), name
+    res = np.load(generate(run, face_person, num_samples=1, timestep_respacing="ddim2", device="cpu",
+                           output_dir=str(tmp_path / "samples")), allow_pickle=True).item()
+    assert res["motions"].shape == (1, 256, 1, TF) and np.isfinite(res["motions"]).all()
