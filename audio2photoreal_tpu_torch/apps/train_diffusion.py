@@ -15,7 +15,10 @@ carry their windows in place of raw audio.  Each step's draws (batch
 windows, t, noise, guidance and dropout masks) come from generators seeded
 by (``--seed``, step index), so a resumed run takes the same steps as an
 uninterrupted one.  Runs on the card unless ``device`` says otherwise;
-without a card and without ``device`` it raises.  bf16 compute, gradient
+without a card and without ``device`` it raises.  ``--dtype bfloat16`` trains
+with the JAX package's mixed precision (f32 parameters and AdamW state, bf16
+compute, f32 output and loss) and ``--frontend_dtype bfloat16`` runs the
+frozen frontend, and the feature cache's build, on bf16 convs.  Gradient
 checkpointing and the TensorBoard / ClearML reporters raise.
 """
 
@@ -64,12 +67,11 @@ def train(
     waiting for the batch plus the copy to the device (on the card the
     copy is enqueued without blocking and timed by CUDA events around it,
     so it counts even while it overlaps the host's work); under ``cache_s``
-    the feature cache's build; under ``reader`` the reads the loader ran
+    the feature cache's build and under ``cache_mb`` its host size; under
+    ``reader`` the reads the loader ran
     ("fastdata" or "numpy")."""
     if mcfg.remat:
         raise NotImplementedError("gradient checkpointing (remat) is not ported: see ROADMAP")
-    if mcfg.dtype != "float32" or mcfg.frontend_dtype != "float32":
-        raise NotImplementedError("bf16 compute is not ported yet: see ROADMAP")
     dev = resolve_device(device)
     timings = {} if timings is None else timings
     os.makedirs(save_dir, exist_ok=True)
@@ -104,6 +106,7 @@ def train(
         feature_cache = build_cache_for_index(index, stats.norm_audio, make_frontend_apply(model.audio_model),
                                               lip_apply)
         timings["cache_s"] = time.perf_counter() - t0
+        timings["cache_mb"] = feature_cache.nbytes() / 1e6
 
     pin = dev.type == "cuda"
 
@@ -178,9 +181,11 @@ def main():
                    help="attention through the CUDA kernels (kernels/flash_attn.py), with the "
                         "probability dropout replayed inside them")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="denoiser compute dtype (bfloat16 is not ported yet and raises)")
+                   help="denoiser compute dtype: bfloat16 computes in bf16 with f32 parameters, optimizer "
+                        "state and loss (core/dtypes.py)")
     p.add_argument("--frontend_dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="frozen wav2vec frontend dtype (bfloat16 is not ported yet and raises)")
+                   help="frozen wav2vec frontend dtype (and the feature cache's); generate runs it in "
+                        "float32 whatever the config says")
     p.add_argument("--remat", action="store_true",
                    help="gradient-checkpoint the decoder layers (not ported yet; raises)")
     p.add_argument("--hash_dropout", action="store_true",

@@ -9,13 +9,16 @@
 // whatever tile size these kernels use.  It is computed per element in both
 // passes and never stored.
 //
-// The products run on the tensor cores with mma.sync m16n8k8 TF32.  A TF32
-// operand keeps 10 of f32's 23 mantissa bits, so an f32 operand x is split
-// as big = tf32_rna(x), small = tf32_rna(x - big), and a product is
-// accumulated in f32 as small*big + big*small + big*big, the small terms
-// first (3xTF32, CUTLASS's OpMultiplyAddFastF32): about f32's accuracy at a
-// third of the TF32 rate.  A bf16 operand is exact in TF32 (8 mantissa bits
-// of 10), so bf16 inputs take the big*big product alone.
+// The f32 kernels (flash_attn_fwd.cu, flash_attn_bwd.cu) run their products
+// on the tensor cores with mma.sync m16n8k8 TF32.  A TF32 operand keeps 10
+// of f32's 23 mantissa bits, so an f32 operand x is split as big =
+// tf32_rna(x), small = tf32_rna(x - big), and a product is accumulated in
+// f32 as small*big + big*small + big*big, the small terms first (3xTF32,
+// CUTLASS's OpMultiplyAddFastF32): about f32's accuracy at a third of the
+// TF32 rate.  The bf16 kernels (flash_attn_fwd_bf16.cu,
+// flash_attn_bwd_bf16.cu) multiply bf16 operands on the bf16 tensor cores
+// and share only the mask, the strided views, the cluster combine, the
+// cp.async tile copy and the launch facts.
 //
 // Fragment layout of m16n8k8 (PTX ISA, per lane: g = lane / 4, t = lane % 4):
 // A [16 x 8]: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
@@ -33,6 +36,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <mutex>
@@ -41,8 +45,6 @@ namespace attn {
 
 constexpr float NEG_BIAS = -1e9f;  // masked key: the JAX package's additive -1e9
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -110,6 +112,112 @@ inline Mat<const T> make_cmat(const void* p, const long long* s) {
   return Mat<const T>{static_cast<const T*>(p), s[0], s[1], s[2]};
 }
 
+// ------------------------------------------------- thread block clusters --
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+// The shared-memory address of p in the block of cluster rank `rank`.
+__device__ __forceinline__ unsigned map_rank(const void* p, unsigned rank) {
+  unsigned r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(unsigned addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster4(unsigned addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// The forward's cluster split for a grid of `tiles` q tiles over `slots`
+// resident blocks: the s in {1, 2, 4} (at most the key tiles) that
+// minimises the estimated time ceil(tiles*s / slots) / s, in whole waves of
+// blocks that each do 1/s of a tile's work; ties go to the smaller s (each
+// split adds a combine).  Splits of 3 measured slower than 2 and 4 at every
+// generate shape (tools/torch_attn_tune.py).
+inline int choose_split(int tiles, int n_kt, int slots, int max_split) {
+  int best = 1;
+  double best_cost = (double)((tiles + slots - 1) / slots);
+  for (int s = 2; s <= max_split && s <= n_kt; s *= 2) {
+    const double cost = (double)((tiles * s + slots - 1) / slots) / s;
+    if (cost < best_cost - 1e-9) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The end of a split forward: each block of the cluster has left its
+// unnormalised partials for the tile's BQ rows in its own shared memory
+// (acc [BQ][LDA], row max m and row sum l [BQ]).  Block `rank` combines rows
+// rank*BQ/split .. (rank+1)*BQ/split - 1 from every block's partials,
+// through distributed shared memory and in rank order, and writes them
+// (rows past Tq are not stored) and their log-sum-exp (when lse_row, the
+// head's [Tq] row of it, is not null).  w [BQ][MAX_SPLIT] is this block's
+// scratch.
+template <int D, int BQ, int LDA, int MAX_SPLIT, int THREADS, typename T>
+__device__ __forceinline__ void combine_split(const float* acc, const float* m, const float* l, float* w,
+                                              unsigned rank, int split, int q0, int Tq, float* lse_row,
+                                              T* oh, long long ost) {
+  cluster_sync();  // every block's partials are written and visible
+  const int r0 = (int)rank * BQ / split, r1 = ((int)rank + 1) * BQ / split;
+  for (int row = r0 + threadIdx.x; row < r1; row += THREADS) {
+    float mi[MAX_SPLIT], mmax = -INFINITY, lsum = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAX_SPLIT; ++i) {
+      mi[i] = i < split ? ld_cluster(map_rank(m + row, i)) : -INFINITY;
+      mmax = fmaxf(mmax, mi[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < MAX_SPLIT; ++i)
+      if (i < split) lsum += ld_cluster(map_rank(l + row, i)) * expf(mi[i] - mmax);
+#pragma unroll
+    for (int i = 0; i < MAX_SPLIT; ++i) w[row * MAX_SPLIT + i] = expf(mi[i] - mmax) / lsum;
+    const int gq = q0 + row;
+    if (lse_row != nullptr && gq < Tq) lse_row[gq] = mmax + logf(lsum);
+  }
+  __syncthreads();
+  constexpr int C4 = D / 4;
+  for (int idx = threadIdx.x; idx < (r1 - r0) * C4; idx += THREADS) {
+    const int row = r0 + idx / C4, c = (idx % C4) * 4, gq = q0 + row;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < MAX_SPLIT; ++i) {
+      if (i >= split) break;
+      const float wi = w[row * MAX_SPLIT + i];
+      const float4 x = ld_cluster4(map_rank(acc + row * LDA + c, i));
+      sum.x += wi * x.x;
+      sum.y += wi * x.y;
+      sum.z += wi * x.z;
+      sum.w += wi * x.w;
+    }
+    if (gq < Tq) {
+      T* p = oh + (long long)gq * ost + c;
+      p[0] = from_float<T>(sum.x);
+      p[1] = from_float<T>(sum.y);
+      p[2] = from_float<T>(sum.z);
+      p[3] = from_float<T>(sum.w);
+    }
+  }
+  cluster_sync();  // no block leaves while another still reads its shared memory
+}
+
 // ------------------------------------------------------------ cp.async --
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -160,10 +268,9 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
 // tensor cores read a TF32 operand's top 19 bits and drop the 13 low ones,
 // so adding half an ulp to lo's bits first makes that drop round lo to
 // nearest: lo = tf32_rna(x - hi) without the mask.
-template <bool X3>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(x);
-  if (X3) lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -174,13 +281,10 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a b: 3xTF32 (small terms first) or, for bf16 inputs, one TF32 product.
-template <bool X3>
+// c += a b in 3xTF32, the small terms first.
 __device__ __forceinline__ void mma(float (&c)[4], const FragA& a, const FragB& b) {
-  if (X3) {
-    mma_tf32(c, a.lo, b.hi);
-    mma_tf32(c, a.hi, b.lo);
-  }
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
   mma_tf32(c, a.hi, b.hi);
 }
 
@@ -188,57 +292,50 @@ __device__ __forceinline__ void mma(float (&c)[4], const FragA& a, const FragB& 
 // dV).  The tensor cores add into their f32 accumulator with truncation
 // (round toward zero), so a chain of mma over thousands of keys drifts by up
 // to ~2e-5 of the sum (an f32 dQ at Tk 2000 missed its 2e-5 bar that way).
-// For f32, each k-step's three products go into a zeroed accumulator, which
-// is added to c with round-to-nearest FADDs; a chain of mma then spans one
-// k-step.  bf16's bars (2e-2) take the chain as it is.
-template <bool X3>
+// So each k-step's three products go into a zeroed accumulator, which is
+// added to c with round-to-nearest FADDs; a chain of mma then spans one
+// k-step.
 __device__ __forceinline__ void mma_sum(float (&c)[4], const FragA& a, const FragB& b) {
-  if (X3) {
-    float d[4] = {0.f, 0.f, 0.f, 0.f};
-    mma<X3>(d, a, b);
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(d, a, b);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) c[i] += d[i];
-  } else {
-    mma<X3>(c, a, b);
-  }
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
 }
 
-template <bool X3>
 __device__ __forceinline__ void split_a(FragA& f, float x0, float x1, float x2, float x3) {
-  split<X3>(x0, f.hi[0], f.lo[0]);
-  split<X3>(x1, f.hi[1], f.lo[1]);
-  split<X3>(x2, f.hi[2], f.lo[2]);
-  split<X3>(x3, f.hi[3], f.lo[3]);
+  split(x0, f.hi[0], f.lo[0]);
+  split(x1, f.hi[1], f.lo[1]);
+  split(x2, f.hi[2], f.lo[2]);
+  split(x3, f.hi[3], f.lo[3]);
 }
 
 // A = rows r0..r0+15, columns c0..c0+7 of a row-major shared tile.
-template <bool X3, int LDS, typename T>
-__device__ __forceinline__ void load_a(FragA& f, const T* s, int r0, int c0, int g, int t) {
-  const T* p = s + (r0 + g) * LDS + c0 + t;
-  split_a<X3>(f, to_float(p[0]), to_float(p[8 * LDS]), to_float(p[4]), to_float(p[8 * LDS + 4]));
+template <int LDS>
+__device__ __forceinline__ void load_a(FragA& f, const float* s, int r0, int c0, int g, int t) {
+  const float* p = s + (r0 + g) * LDS + c0 + t;
+  split_a(f, p[0], p[8 * LDS], p[4], p[8 * LDS + 4]);
 }
 
 // A from a C-layout accumulator (its 8 columns are the step's k, permuted).
-template <bool X3>
 __device__ __forceinline__ void a_from_c(FragA& f, const float (&c)[4]) {
-  split_a<X3>(f, c[0], c[2], c[1], c[3]);
+  split_a(f, c[0], c[2], c[1], c[3]);
 }
 
 // B[k][n] = s[n0 + n][c0 + k]: the tile holds n as rows (K in Q K^T).
-template <bool X3, int LDS, typename T>
-__device__ __forceinline__ void load_b_nk(FragB& f, const T* s, int n0, int c0, int g, int t) {
-  const T* p = s + (n0 + g) * LDS + c0 + t;
-  split<X3>(to_float(p[0]), f.hi[0], f.lo[0]);
-  split<X3>(to_float(p[4]), f.hi[1], f.lo[1]);
+template <int LDS>
+__device__ __forceinline__ void load_b_nk(FragB& f, const float* s, int n0, int c0, int g, int t) {
+  const float* p = s + (n0 + g) * LDS + c0 + t;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
 }
 
 // B[k][n] = s[k0 + k][n0 + n] with k permuted as a_from_c permutes it: the
 // tile holds k as rows (V in P V).
-template <bool X3, int LDS, typename T>
-__device__ __forceinline__ void load_b_kn(FragB& f, const T* s, int k0, int n0, int g, int t) {
-  const T* p = s + (k0 + 2 * t) * LDS + n0 + g;
-  split<X3>(to_float(p[0]), f.hi[0], f.lo[0]);
-  split<X3>(to_float(p[LDS]), f.hi[1], f.lo[1]);
+template <int LDS>
+__device__ __forceinline__ void load_b_kn(FragB& f, const float* s, int k0, int n0, int g, int t) {
+  const float* p = s + (k0 + 2 * t) * LDS + n0 + g;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[LDS], f.hi[1], f.lo[1]);
 }
 
 // ---------------------------------------------------------- launching --

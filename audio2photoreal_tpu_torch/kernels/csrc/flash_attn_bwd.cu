@@ -36,11 +36,12 @@
 // The loops and the partials' sum run in a fixed order and nothing is
 // accumulated by atomics, so two runs give bit-identical gradients.
 //
+// This is the f32 kernel; bf16 inputs take flash_attn_bwd_bf16.cu.
+//
 // What bounds it on the card: 10*B*H*Tq*Tk*Dh flops (flash.py:266) against
 // a few reads of q, k, v, dO and the scratch: arithmetic.  Every product
-// runs on the tensor cores as mma.sync m16n8k8 TF32, 3xTF32 for f32 inputs
-// (f32 accuracy) and one TF32 product for bf16 inputs, which TF32 holds
-// exactly (attn_common.cuh; why not wgmma: flash_attn_fwd.cu).  The
+// runs on the tensor cores as mma.sync m16n8k8 TF32 in 3xTF32, for f32
+// accuracy (attn_common.cuh; why not wgmma: flash_attn_fwd.cu).  The
 // streamed Q and dO tiles come through a two-stage cp.async ring, so the
 // next tile's copy overlaps this tile's products; dS^T takes the current
 // stage's buffer once its products are done.  At Dh 64 a block is 4 warps,
@@ -54,7 +55,6 @@
 //
 // Plain C interface for ctypes; the caller owns every buffer and the stream.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -65,16 +65,15 @@ namespace {
 using attn::Dropout;
 using attn::FragA;
 using attn::FragB;
-using attn::from_float;
 using attn::Mat;
 using attn::NEG_BIAS;
-using attn::to_float;
 
 constexpr int DELTA_THREADS = 256;
 
-template <typename T, int D>
+using T = float;
+
+template <int D>
 struct Cfg {
-  static constexpr bool X3 = sizeof(T) == 4;  // f32: 3xTF32; bf16: one TF32 product
   static constexpr int WARPS = D == 128 ? 8 : 4;
   static constexpr int THREADS = 32 * WARPS;
   // occupancy and streamed tile: the best of the variants timed (PERF.md, tools/torch_attn_tune.py)
@@ -85,18 +84,17 @@ struct Cfg {
   static constexpr size_t RES_BYTES = sizeof(T) * 2 * RES * LDS;  // K and V, or Q and dO
   static constexpr size_t STAGE_BYTES = sizeof(T) * 2 * STR * LDS;
   static constexpr size_t VEC_BYTES = sizeof(float) * 3 * STR;    // lse, delta, row term
-  // dS^T [RES keys][LDP] f32: in the current stage's Q/dO buffer once its
-  // products are done, or (bf16 at Dh 128, whose stage is smaller) its own
+  // dS^T [RES keys][LDP] f32, in the current stage's Q/dO buffer once its
+  // products are done
   static constexpr int LDP = STR + 4;
   static constexpr size_t DS_BYTES = sizeof(float) * RES * LDP;
-  static constexpr bool DS_OWN = DS_BYTES > STAGE_BYTES;
-  static constexpr size_t DKDV_SMEM = RES_BYTES + 2 * (STAGE_BYTES + VEC_BYTES) + (DS_OWN ? DS_BYTES : 0);
+  static_assert(DS_BYTES <= STAGE_BYTES, "dS^T fits a stage");
+  static constexpr size_t DKDV_SMEM = RES_BYTES + 2 * (STAGE_BYTES + VEC_BYTES);
   // the dQ partial of a q tile: STR / 16 m-tiles x D / 8 n-tiles shared by the warps
   static constexpr int MQ = STR / 16, NDW = (D / 8) * MQ / WARPS;
   static_assert(WARPS % MQ == 0 && NDW * WARPS == (D / 8) * MQ, "dQ partial tiles share out");
 };
 
-template <typename T>
 struct BwdArgs {
   Mat<const T> q, k, v, dout;
   Mat<T> dq, dk, dv;
@@ -109,13 +107,12 @@ struct BwdArgs {
   Dropout drop;
 };
 
-template <typename T>
 __device__ __forceinline__ void store2(T* p, float a, float b) {
-  p[0] = from_float<T>(a);
-  p[1] = from_float<T>(b);
+  p[0] = a;
+  p[1] = b;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(DELTA_THREADS)
 attn_bwd_delta_kernel(Mat<const T> out, Mat<const T> dout, float* __restrict__ delta, int H,
                       int Tq, int rows) {
@@ -127,17 +124,16 @@ attn_bwd_delta_kernel(Mat<const T> out, Mat<const T> dout, float* __restrict__ d
   const T* g = dout.head(b, h) + (long long)i * dout.st;
   float acc = 0.f;
 #pragma unroll
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_float(o[c]), to_float(g[c]), acc);
+  for (int c = lane; c < D; c += 32) acc = fmaf(o[c], g[c], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Cfg<T, D>::THREADS, Cfg<T, D>::MIN_BLOCKS)
-attn_bwd_dkdv_kernel(BwdArgs<T> a) {
-  using C = Cfg<T, D>;
-  constexpr bool X3 = C::X3;
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MIN_BLOCKS)
+attn_bwd_dkdv_kernel(BwdArgs a) {
+  using C = Cfg<D>;
   constexpr int THREADS = C::THREADS, KB = C::RES, QB = C::STR, LDS = C::LDS, LDP = C::LDP;
   constexpr int NQ = QB / 8, ND = D / 8, NDW = C::NDW;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -215,15 +211,15 @@ attn_bwd_dkdv_kernel(BwdArgs<T> a) {
 #pragma unroll
     for (int ks = 0; ks < ND; ++ks) {
       FragA fk, fv;
-      attn::load_a<X3, LDS>(fk, sK, wr, ks * 8, g, t);
-      attn::load_a<X3, LDS>(fv, sV, wr, ks * 8, g, t);
+      attn::load_a<LDS>(fk, sK, wr, ks * 8, g, t);
+      attn::load_a<LDS>(fv, sV, wr, ks * 8, g, t);
 #pragma unroll
       for (int j = 0; j < NQ; ++j) {
         FragB fq, fo;
-        attn::load_b_nk<X3, LDS>(fq, sQ, j * 8, ks * 8, g, t);
-        attn::mma<X3>(st[j], fk, fq);
-        attn::load_b_nk<X3, LDS>(fo, sdO, j * 8, ks * 8, g, t);
-        attn::mma<X3>(dpt[j], fv, fo);
+        attn::load_b_nk<LDS>(fq, sQ, j * 8, ks * 8, g, t);
+        attn::mma(st[j], fk, fq);
+        attn::load_b_nk<LDS>(fo, sdO, j * 8, ks * 8, g, t);
+        attn::mma(dpt[j], fv, fo);
       }
     }
 
@@ -255,22 +251,21 @@ attn_bwd_dkdv_kernel(BwdArgs<T> a) {
 #pragma unroll
     for (int kk = 0; kk < NQ; ++kk) {
       FragA fp, fs;
-      attn::a_from_c<X3>(fp, st[kk]);
-      attn::a_from_c<X3>(fs, dpt[kk]);
+      attn::a_from_c(fp, st[kk]);
+      attn::a_from_c(fs, dpt[kk]);
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         FragB fo, fq;
-        attn::load_b_kn<X3, LDS>(fo, sdO, kk * 8, n * 8, g, t);
-        attn::mma_sum<X3>(dv[n], fp, fo);
-        attn::load_b_kn<X3, LDS>(fq, sQ, kk * 8, n * 8, g, t);
-        attn::mma_sum<X3>(dk[n], fs, fq);
+        attn::load_b_kn<LDS>(fo, sdO, kk * 8, n * 8, g, t);
+        attn::mma_sum(dv[n], fp, fo);
+        attn::load_b_kn<LDS>(fq, sQ, kk * 8, n * 8, g, t);
+        attn::mma_sum(dk[n], fs, fq);
       }
     }
     __syncthreads();  // every warp is done with this stage's Q and dO
 
     // dS^T into the stage's buffer: key rows, q columns
-    float* sdS = C::DS_OWN ? reinterpret_cast<float*>(smem + C::DKDV_SMEM - C::DS_BYTES)
-                           : reinterpret_cast<float*>(sRing + (2 * stage) * QB * LDS);
+    float* sdS = reinterpret_cast<float*>(sRing + (2 * stage) * QB * LDS);
 #pragma unroll
     for (int j = 0; j < NQ; ++j)
 #pragma unroll
@@ -291,12 +286,12 @@ attn_bwd_dkdv_kernel(BwdArgs<T> a) {
         // A[q][key] = dS^T[key][q], the keys of the step in a_from_c's order
         const float* p = sdS + (ks * 8 + 2 * t) * LDP + mq + g;
         FragA fs;
-        attn::split_a<X3>(fs, p[0], p[8], p[LDP], p[LDP + 8]);
+        attn::split_a(fs, p[0], p[8], p[LDP], p[LDP + 8]);
 #pragma unroll
         for (int n = 0; n < NDW; ++n) {
           FragB fk;
-          attn::load_b_kn<X3, LDS>(fk, sK, ks * 8, (n0 + n) * 8, g, t);
-          attn::mma_sum<X3>(acc[n], fs, fk);
+          attn::load_b_kn<LDS>(fk, sK, ks * 8, (n0 + n) * 8, g, t);
+          attn::mma_sum(acc[n], fs, fk);
         }
       }
       float* part = a.dq_part + (((size_t)blockIdx.x * gridDim.y + bh) * a.Tq) * D;
@@ -331,7 +326,7 @@ attn_bwd_dkdv_kernel(BwdArgs<T> a) {
 
 // dQ = scale * the sum of the key blocks' partials, in block order: one
 // thread per 4 elements of a row.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(DELTA_THREADS)
 attn_bwd_dq_kernel(const float* __restrict__ part, Mat<T> dq, int H, int Tq, int rows, int n_kb,
                    float scale) {
@@ -354,37 +349,37 @@ attn_bwd_dq_kernel(const float* __restrict__ part, Mat<T> dq, int H, int Tq, int
   store2(o + 2, sum.z * scale, sum.w * scale);
 }
 
-template <typename T, int D>
+template <int D>
 attn::Prepared prepared() {
-  using C = Cfg<T, D>;
+  using C = Cfg<D>;
   static attn::PreparedCache cache;
-  return attn::prepare(cache, attn_bwd_dkdv_kernel<T, D>, C::THREADS, C::DKDV_SMEM);
+  return attn::prepare(cache, attn_bwd_dkdv_kernel<D>, C::THREADS, C::DKDV_SMEM);
 }
 
-template <typename T, int D>
+template <int D>
 long long scratch_floats(int B, int H, int Tq, int Tk) {
-  return (long long)((Tk + Cfg<T, D>::RES - 1) / Cfg<T, D>::RES) * B * H * Tq * D;
+  return (long long)((Tk + Cfg<D>::RES - 1) / Cfg<D>::RES) * B * H * Tq * D;
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* kv_valid, const void* out,
            const void* dout, const float* lse, float* delta, float* dq_part, void* dq, void* dk,
            void* dv, const long long* strides, int B, int H, int Tq, int Tk, int causal,
            const Dropout& drop, cudaStream_t stream) {
-  using C = Cfg<T, D>;
-  const attn::Prepared p = prepared<T, D>();
+  using C = Cfg<D>;
+  const attn::Prepared p = prepared<D>();
   if (p.err != cudaSuccess) return (int)p.err;
   const int rows = B * H * Tq;
   const float scale = (float)(1.0 / sqrt((double)D));
   const int delta_blocks = (int)(((size_t)rows * 32 + DELTA_THREADS - 1) / DELTA_THREADS);
-  attn_bwd_delta_kernel<T, D><<<delta_blocks, DELTA_THREADS, 0, stream>>>(
+  attn_bwd_delta_kernel<D><<<delta_blocks, DELTA_THREADS, 0, stream>>>(
       attn::make_cmat<T>(out, strides + 9), attn::make_cmat<T>(dout, strides + 12), delta, H, Tq,
       rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const int n_kb = (Tk + C::RES - 1) / C::RES;
-  BwdArgs<T> a{attn::make_cmat<T>(q, strides),      attn::make_cmat<T>(k, strides + 3),
+  BwdArgs a{attn::make_cmat<T>(q, strides),      attn::make_cmat<T>(k, strides + 3),
                attn::make_cmat<T>(v, strides + 6),  attn::make_cmat<T>(dout, strides + 12),
                attn::make_mat<T>(dq, strides + 15), attn::make_mat<T>(dk, strides + 18),
                attn::make_mat<T>(dv, strides + 21), static_cast<const float*>(kv_valid),
@@ -393,11 +388,11 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid, co
                Tq,                                  Tk,
                causal,                              scale,
                drop};
-  attn_bwd_dkdv_kernel<T, D><<<dim3(n_kb, B * H), C::THREADS, C::DKDV_SMEM, stream>>>(a);
+  attn_bwd_dkdv_kernel<D><<<dim3(n_kb, B * H), C::THREADS, C::DKDV_SMEM, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int dq_blocks = (int)(((size_t)rows * (D / 4) + DELTA_THREADS - 1) / DELTA_THREADS);
-  attn_bwd_dq_kernel<T, D><<<dq_blocks, DELTA_THREADS, 0, stream>>>(dq_part, a.dq, H, Tq, rows, n_kb,
+  attn_bwd_dq_kernel<D><<<dq_blocks, DELTA_THREADS, 0, stream>>>(dq_part, a.dq, H, Tq, rows, n_kb,
                                                                      scale);
   return (int)cudaGetLastError();
 }
@@ -406,17 +401,14 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid, co
 
 // Floats of f32 scratch the backward needs for its dQ partials: one
 // [B, H, Tq, D] plane per key block; -1 for a shape it does not take.
-extern "C" long long flash_attn_bwd_scratch_floats(int B, int H, int Tq, int Tk, int D, int dtype) {
+extern "C" long long flash_attn_bwd_scratch_floats(int B, int H, int Tq, int Tk, int D) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1) return -1;
-  if (dtype == 0 && D == 64) return scratch_floats<float, 64>(B, H, Tq, Tk);
-  if (dtype == 0 && D == 128) return scratch_floats<float, 128>(B, H, Tq, Tk);
-  if (dtype == 1 && D == 64) return scratch_floats<__nv_bfloat16, 64>(B, H, Tq, Tk);
-  if (dtype == 1 && D == 128) return scratch_floats<__nv_bfloat16, 128>(B, H, Tq, Tk);
+  if (D == 64) return scratch_floats<64>(B, H, Tq, Tk);
+  if (D == 128) return scratch_floats<128>(B, H, Tq, Tk);
   return -1;
 }
 
-// q/dq/out/dout [B,H,Tq,D], k/v/dk/dv [B,H,Tk,D], all of one dtype (0 =
-// float32, 1 = bfloat16), each a strided view: strides[3*i .. 3*i+2] are the
+// q/dq/out/dout [B,H,Tq,D], k/v/dk/dv [B,H,Tk,D], float32, each a strided view: strides[3*i .. 3*i+2] are the
 // batch, head and time strides in elements of q, k, v, out, dout, dq, dk, dv
 // (i = 0..7), the D axis contiguous, every row on 16 bytes.  kv_valid [B,Tk]
 // float32 or null; lse [B,H,Tq] float32 from the forward; delta [B,H,Tq]
@@ -427,7 +419,7 @@ extern "C" long long flash_attn_bwd_scratch_floats(int B, int H, int Tq, int Tk,
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const void* kv_valid,
                               const void* out, const void* dout, const void* lse, void* delta,
                               void* dq_part, void* dq, void* dk, void* dv, const long long* strides,
-                              int B, int H, int Tq, int Tk, int D, int dtype, int causal,
+                              int B, int H, int Tq, int Tk, int D, int causal,
                               int dropout, unsigned int seed, unsigned int threshold, float mult,
                               int bq, int nj, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || B * H > 65535) return (int)cudaErrorInvalidValue;
@@ -437,17 +429,11 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v, const
   float* dl = static_cast<float*>(delta);
   float* part = static_cast<float*>(dq_part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv, strides, B, H,
-                             Tq, Tk, causal, drop, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv, strides, B,
-                              H, Tq, Tk, causal, drop, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv,
-                                     strides, B, H, Tq, Tk, causal, drop, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv,
-                                      strides, B, H, Tq, Tk, causal, drop, s);
+  if (D == 64)
+    return launch<64>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv, strides, B, H, Tq, Tk, causal,
+                      drop, s);
+  if (D == 128)
+    return launch<128>(q, k, v, kv_valid, out, dout, l, dl, part, dq, dk, dv, strides, B, H, Tq, Tk, causal,
+                       drop, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,11 +14,13 @@
 // accumulator of each warp in registers.  The [Tq, Tk] logits never leave
 // the SM.
 //
+// This is the f32 kernel; bf16 inputs take flash_attn_fwd_bf16.cu.
+//
 // What bounds it on the card: 4*Tq*Tk*Dh flops per head against a few reads
 // of q, k, v: arithmetic.  Both products (S = Q K^T, O += P V) run on the
-// tensor cores as mma.sync m16n8k8 TF32, with f32 inputs split into three
-// TF32 products (3xTF32, attn_common.cuh) so the result keeps f32's
-// accuracy; bf16 inputs are exact in TF32 and take one product.  Not wgmma:
+// tensor cores as mma.sync m16n8k8 TF32, with the f32 inputs split into
+// three TF32 products (3xTF32, attn_common.cuh) so the result keeps f32's
+// accuracy.  Not wgmma:
 // tf32 wgmma reads both shared-memory operands K-major only (no transpose
 // for 32-bit types), so V would have to be staged transposed and both
 // operands pre-split into big/small tiles, doubling their shared memory;
@@ -27,7 +29,7 @@
 //
 // K/V tiles arrive through a two-stage cp.async ring (16 B per thread): the
 // next tile's copy is in flight while this tile's products run.  A block
-// owns 64 q rows; K/V tiles are 32 keys (f32), so three blocks fit an SM at
+// owns 64 q rows; K/V tiles are 32 keys, so three blocks fit an SM at
 // Dh 64 (52 KB, registers capped at 168) and two at Dh 128 (101 KB).  Each
 // choice is the fastest of those tools/torch_attn_tune.py measured on the
 // H100: two 16-row m-tiles per warp, 64-key tiles at Dh 128 and a split of
@@ -62,7 +64,6 @@
 //
 // Plain C interface for ctypes; the caller owns every buffer and the stream.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -73,7 +74,6 @@ namespace {
 using attn::Dropout;
 using attn::FragA;
 using attn::FragB;
-using attn::from_float;
 using attn::Mat;
 using attn::NEG_BIAS;
 
@@ -82,11 +82,12 @@ constexpr int WARPS = 4;      // 16 q rows each
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_SPLIT = 4;  // blocks per cluster
 
-template <typename T, int D>
+using T = float;
+
+template <int D>
 struct Cfg {
-  static constexpr bool X3 = sizeof(T) == 4;  // f32: 3xTF32; bf16: one TF32 product
   // tile and occupancy: the best of the variants timed (PERF.md, tools/torch_attn_tune.py)
-  static constexpr int BK = X3 ? 32 : 64;              // keys per K/V tile
+  static constexpr int BK = 32;                        // keys per K/V tile
   static constexpr int MIN_BLOCKS = D == 128 ? 2 : 3;  // resident blocks per SM the registers must allow
   static constexpr int LDS = D + 16 / (int)sizeof(T);  // shared row stride, elements
   static constexpr int LDA = D + 4;                    // combine buffer row stride, floats
@@ -97,7 +98,6 @@ struct Cfg {
   static_assert(sizeof(float) * BQ * (LDA + 2 + MAX_SPLIT) <= SMEM, "combine buffers fit");
 };
 
-template <typename T>
 struct FwdArgs {
   Mat<const T> q, k, v;
   Mat<T> o;
@@ -108,54 +108,22 @@ struct FwdArgs {
   Dropout drop;
 };
 
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
-                   : "memory");
-}
-// The shared-memory address of p in the block of cluster rank `rank`.
-__device__ __forceinline__ unsigned map_rank(const void* p, unsigned rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"((unsigned)__cvta_generic_to_shared(p)), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ float ld_cluster(unsigned addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
-  return v;
-}
-__device__ __forceinline__ float4 ld_cluster4(unsigned addr) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0,%1,%2,%3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(addr));
-  return v;
-}
-
-template <typename T>
 __device__ __forceinline__ void store2(T* p, float a, float b) {
-  p[0] = from_float<T>(a);
-  p[1] = from_float<T>(b);
+  p[0] = a;
+  p[1] = b;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, Cfg<T, D>::MIN_BLOCKS)
-attn_fwd_kernel(FwdArgs<T> a) {
-  using C = Cfg<T, D>;
-  constexpr bool X3 = C::X3;
+template <int D>
+__global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
+attn_fwd_kernel(FwdArgs a) {
+  using C = Cfg<D>;
   constexpr int BK = C::BK, LDS = C::LDS, NT = BK / 8, ND = D / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sRing = reinterpret_cast<T*>(smem + C::Q_BYTES);  // stage s: K at 2s, V at 2s + 1
 
   const int split = a.split;
-  const unsigned rank = split > 1 ? cluster_rank() : 0u;
+  const unsigned rank = split > 1 ? attn::cluster_rank() : 0u;
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
   const int q0 = (blockIdx.x / split) * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -209,12 +177,12 @@ attn_fwd_kernel(FwdArgs<T> a) {
 #pragma unroll
     for (int ks = 0; ks < ND; ++ks) {
       FragA fa;
-      attn::load_a<X3, LDS>(fa, sQ, wr, ks * 8, g, t);
+      attn::load_a<LDS>(fa, sQ, wr, ks * 8, g, t);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         FragB fb;
-        attn::load_b_nk<X3, LDS>(fb, sK, j * 8, ks * 8, g, t);
-        attn::mma<X3>(s[j], fa, fb);
+        attn::load_b_nk<LDS>(fb, sK, j * 8, ks * 8, g, t);
+        attn::mma(s[j], fa, fb);
       }
     }
 
@@ -267,12 +235,12 @@ attn_fwd_kernel(FwdArgs<T> a) {
 #pragma unroll
     for (int kk = 0; kk < NT; ++kk) {
       FragA fa;
-      attn::a_from_c<X3>(fa, s[kk]);
+      attn::a_from_c(fa, s[kk]);
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         FragB fb;
-        attn::load_b_kn<X3, LDS>(fb, sV, kk * 8, n * 8, g, t);
-        attn::mma_sum<X3>(o[n], fa, fb);
+        attn::load_b_kn<LDS>(fb, sV, kk * 8, n * 8, g, t);
+        attn::mma_sum(o[n], fa, fb);
       }
     }
     __syncthreads();  // this stage is read: the next iteration may refill it
@@ -320,97 +288,43 @@ attn_fwd_kernel(FwdArgs<T> a) {
       sL[row] = l[r];
     }
   }
-  cluster_sync();  // every block's partials are written and visible
-  const int r0 = (int)rank * BQ / split, r1 = ((int)rank + 1) * BQ / split;
-  for (int row = r0 + threadIdx.x; row < r1; row += THREADS) {
-    float mi[MAX_SPLIT], mmax = -INFINITY, lsum = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_SPLIT; ++i) {
-      mi[i] = i < split ? ld_cluster(map_rank(sM + row, i)) : -INFINITY;
-      mmax = fmaxf(mmax, mi[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < MAX_SPLIT; ++i)
-      if (i < split) lsum += ld_cluster(map_rank(sL + row, i)) * expf(mi[i] - mmax);
-#pragma unroll
-    for (int i = 0; i < MAX_SPLIT; ++i) sW[row * MAX_SPLIT + i] = expf(mi[i] - mmax) / lsum;
-    const int gq = q0 + row;
-    if (a.lse != nullptr && gq < a.Tq) a.lse[(size_t)bh * a.Tq + gq] = mmax + logf(lsum);
-  }
-  __syncthreads();
-  constexpr int C4 = D / 4;
-  for (int idx = threadIdx.x; idx < (r1 - r0) * C4; idx += THREADS) {
-    const int row = r0 + idx / C4, c = (idx % C4) * 4, gq = q0 + row;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int i = 0; i < MAX_SPLIT; ++i) {
-      if (i >= split) break;
-      const float w = sW[row * MAX_SPLIT + i];
-      const float4 x = ld_cluster4(map_rank(sAcc + row * LDA + c, i));
-      acc.x += w * x.x;
-      acc.y += w * x.y;
-      acc.z += w * x.z;
-      acc.w += w * x.w;
-    }
-    if (gq < a.Tq) {
-      T* p = oh + (long long)gq * a.o.st + c;
-      store2(p, acc.x, acc.y);
-      store2(p + 2, acc.z, acc.w);
-    }
-  }
-  cluster_sync();  // no block leaves while another still reads its shared memory
+  attn::combine_split<D, BQ, LDA, MAX_SPLIT, THREADS>(sAcc, sM, sL, sW, rank, split, q0, a.Tq,
+                                                       a.lse ? a.lse + (size_t)bh * a.Tq : nullptr,
+                                                       oh, a.o.st);
 }
 
-// The cluster split for this grid: the s in {1, 2, 4} (at most the key
-// tiles) that minimises the estimated time ceil(tiles*s / slots) / s, in
-// whole waves of blocks that each do 1/s of a tile's work; ties go to the
-// smaller s (each split adds a combine).  Splits of 3 measured slower than
-// 2 and 4 at every generate shape (tools/torch_attn_tune.py).
-inline int choose_split(int tiles, int n_kt, int slots) {
-  int best = 1;
-  double best_cost = (double)((tiles + slots - 1) / slots);
-  for (int s = 2; s <= MAX_SPLIT && s <= n_kt; s *= 2) {
-    const double cost = (double)((tiles * s + slots - 1) / slots) / s;
-    if (cost < best_cost - 1e-9) {
-      best = s;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
-template <typename T, int D>
+template <int D>
 attn::Prepared prepared() {
   static attn::PreparedCache cache;
-  return attn::prepare(cache, attn_fwd_kernel<T, D>, THREADS, Cfg<T, D>::SMEM);
+  return attn::prepare(cache, attn_fwd_kernel<D>, THREADS, Cfg<D>::SMEM);
 }
 
-template <typename T, int D>
+template <int D>
 int auto_split(int B, int H, int Tq, int Tk) {
-  const attn::Prepared p = prepared<T, D>();
+  const attn::Prepared p = prepared<D>();
   if (p.err != cudaSuccess) return -(int)p.err;
   const int tiles = (Tq + BQ - 1) / BQ * B * H;
-  return choose_split(tiles, (Tk + Cfg<T, D>::BK - 1) / Cfg<T, D>::BK,
-                      p.blocks_per_sm * p.sms);
+  return attn::choose_split(tiles, (Tk + Cfg<D>::BK - 1) / Cfg<D>::BK, p.blocks_per_sm * p.sms,
+                            MAX_SPLIT);
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* kv_valid, void* out,
            float* lse, const long long* strides, int B, int H, int Tq, int Tk, int causal,
            int split, const Dropout& drop, cudaStream_t stream) {
-  using C = Cfg<T, D>;
-  const attn::Prepared p = prepared<T, D>();
+  using C = Cfg<D>;
+  const attn::Prepared p = prepared<D>();
   if (p.err != cudaSuccess) return (int)p.err;
-  if (split == 0) split = auto_split<T, D>(B, H, Tq, Tk);
+  if (split == 0) split = auto_split<D>(B, H, Tq, Tk);
   const int n_kt = (Tk + C::BK - 1) / C::BK;
   if (split < 1 || split > MAX_SPLIT || split > n_kt) return (int)cudaErrorInvalidValue;
-  FwdArgs<T> a{attn::make_cmat<T>(q, strides), attn::make_cmat<T>(k, strides + 3),
+  FwdArgs a{attn::make_cmat<T>(q, strides), attn::make_cmat<T>(k, strides + 3),
                attn::make_cmat<T>(v, strides + 6), attn::make_mat<T>(out, strides + 9),
                static_cast<const float*>(kv_valid), lse, H, Tq, Tk, causal, split,
                (float)(1.0 / sqrt((double)D)), drop};
   const dim3 grid((Tq + BQ - 1) / BQ * split, B * H);
   if (split == 1) {
-    attn_fwd_kernel<T, D><<<grid, THREADS, C::SMEM, stream>>>(a);
+    attn_fwd_kernel<D><<<grid, THREADS, C::SMEM, stream>>>(a);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -425,7 +339,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid, vo
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, attn_fwd_kernel<T, D>, a);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, attn_fwd_kernel<D>, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -433,17 +347,14 @@ int launch(const void* q, const void* k, const void* v, const void* kv_valid, vo
 
 // The cluster split the forward takes for this shape when called with split
 // 0: 1, 2 or 4, or a negated cudaError_t.
-extern "C" int flash_attn_fwd_split(int B, int H, int Tq, int Tk, int D, int dtype) {
+extern "C" int flash_attn_fwd_split(int B, int H, int Tq, int Tk, int D) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1) return -(int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 64) return auto_split<float, 64>(B, H, Tq, Tk);
-  if (dtype == 0 && D == 128) return auto_split<float, 128>(B, H, Tq, Tk);
-  if (dtype == 1 && D == 64) return auto_split<__nv_bfloat16, 64>(B, H, Tq, Tk);
-  if (dtype == 1 && D == 128) return auto_split<__nv_bfloat16, 128>(B, H, Tq, Tk);
+  if (D == 64) return auto_split<64>(B, H, Tq, Tk);
+  if (D == 128) return auto_split<128>(B, H, Tq, Tk);
   return -(int)cudaErrorInvalidValue;
 }
 
-// q [B,H,Tq,D], k/v [B,H,Tk,D], out [B,H,Tq,D], all of one dtype (0 =
-// float32, 1 = bfloat16), each a strided view: strides[3*i .. 3*i+2] are the
+// q [B,H,Tq,D], k/v [B,H,Tk,D], out [B,H,Tq,D], float32, each a strided view: strides[3*i .. 3*i+2] are the
 // batch, head and time strides in elements of q, k, v, out (i = 0..3), the D
 // axis contiguous, every row on 16 bytes.  kv_valid [B,Tk] float32 or null;
 // lse [B,H,Tq] float32, or null for no log-sum-exp.  split: blocks of a
@@ -453,7 +364,7 @@ extern "C" int flash_attn_fwd_split(int B, int H, int Tq, int Tk, int D, int dty
 // the launch was accepted.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* kv_valid,
                               void* out, void* lse, const long long* strides, int B, int H,
-                              int Tq, int Tk, int D, int dtype, int causal, int split,
+                              int Tq, int Tk, int D, int causal, int split,
                               int dropout, unsigned int seed, unsigned int threshold, float mult,
                               int bq, int nj, void* stream) {
   if (B < 1 || H < 1 || Tq < 1 || Tk < 1 || B * H > 65535) return (int)cudaErrorInvalidValue;
@@ -461,17 +372,7 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
   const Dropout drop{dropout, seed, threshold, mult, bq, nj};
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, kv_valid, out, l, strides, B, H, Tq, Tk, causal, split,
-                             drop, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, kv_valid, out, l, strides, B, H, Tq, Tk, causal, split,
-                              drop, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, kv_valid, out, l, strides, B, H, Tq, Tk, causal,
-                                     split, drop, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, kv_valid, out, l, strides, B, H, Tq, Tk, causal,
-                                      split, drop, s);
+  if (D == 64) return launch<64>(q, k, v, kv_valid, out, l, strides, B, H, Tq, Tk, causal, split, drop, s);
+  if (D == 128) return launch<128>(q, k, v, kv_valid, out, l, strides, B, H, Tq, Tk, causal, split, drop, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,19 @@
-"""Attention forward and backward: the CUDA kernels ``csrc/flash_attn_fwd.cu``
-and ``csrc/flash_attn_bwd.cu``, their plain versions, and the autograd pair.
+"""Attention forward and backward: the CUDA kernels, their plain versions,
+and the autograd pair.  f32 tensors take ``csrc/flash_attn_fwd.cu`` and
+``csrc/flash_attn_bwd.cu`` (3xTF32 on ``mma.sync``), bf16 tensors
+``csrc/flash_attn_fwd_bf16.cu`` (``wgmma`` with TMA) and
+``csrc/flash_attn_bwd_bf16.cu`` (bf16 ``mma.sync`` with ``ldmatrix``).
 
 Replaces ``audio2photoreal_tpu/ops/pallas/flash.py`` (``flash_attention``
 with its custom VJP -> ``_flash_fwd`` / ``_attn_kernel`` and ``_flash_bwd`` /
 ``_attn_bwd_kernel``) with the same semantics: [B, H, Tq, Dh] x [B, H, Tk, Dh]
 -> [B, H, Tq, Dh], a [B, Tk] key-validity mask as a -1e9 additive bias, an
 optional causal mask aligned at ``j <= i + (Tk - Tq)``, f32 logits and
-softmax statistics, output in the input dtype.
+softmax statistics, output in the input dtype.  In bf16 the products take
+bf16 operands with f32 sums, rounding where the TPU kernel rounds
+(flash.py:149, :178-201): the probabilities (after dropout) before P V, and
+in the backward P o M before dV and dS before dQ and dK; the plain versions
+round at the same places.
 
 Attention-prob dropout replays the JAX package's ``"hash"`` mask source
 (``hash_mask_mult``): element (b, h, i, j) keeps iff
@@ -46,36 +53,78 @@ NAME = "flash_attn_fwd"
 SOURCES = ("flash_attn_fwd.cu",)
 BWD_NAME = "flash_attn_bwd"
 BWD_SOURCES = ("flash_attn_bwd.cu",)
+BF16_NAME = "flash_attn_fwd_bf16"
+BF16_SOURCES = ("flash_attn_fwd_bf16.cu",)
+BF16_BWD_NAME = "flash_attn_bwd_bf16"
+BF16_BWD_SOURCES = ("flash_attn_bwd_bf16.cu",)
 HEAD_DIMS = (64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
 _U32 = 0xFFFFFFFF
 # the mix's multipliers (flash.py:100-107)
 _C_SEED, _C_BLOCK, _C_ROW, _C_COL, _C_MIX2 = 2654435761, 40503, 3266489917, 668265263, 668265263
 _DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int]
 
 
+def _bind_fwd(name: str, sources) -> ctypes.CDLL:
+    lib = load_library(name, sources)
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + _DROPOUT_ARGTYPES + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    split = getattr(lib, f"{name}_split")
+    split.argtypes = [ctypes.c_int] * 5
+    split.restype = ctypes.c_int
+    return lib
+
+
+def _bind_bwd(name: str, sources) -> ctypes.CDLL:
+    lib = load_library(name, sources)
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + _DROPOUT_ARGTYPES + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scratch = getattr(lib, f"{name}_scratch_floats")
+    scratch.argtypes = [ctypes.c_int] * 5
+    scratch.restype = ctypes.c_longlong
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Build (at first use) and bind the forward kernel's library."""
-    lib = load_library(NAME, SOURCES)
-    fn = lib.flash_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + _DROPOUT_ARGTYPES + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.flash_attn_fwd_split.argtypes = [ctypes.c_int] * 6
-    lib.flash_attn_fwd_split.restype = ctypes.c_int
-    return lib
+    """Build (at first use) and bind the f32 forward kernel's library."""
+    return _bind_fwd(NAME, SOURCES)
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_library() -> ctypes.CDLL:
-    """Build (at first use) and bind the backward kernels' library."""
-    lib = load_library(BWD_NAME, BWD_SOURCES)
-    fn = lib.flash_attn_bwd
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + _DROPOUT_ARGTYPES + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.flash_attn_bwd_scratch_floats.argtypes = [ctypes.c_int] * 6
-    lib.flash_attn_bwd_scratch_floats.restype = ctypes.c_longlong
-    return lib
+    """Build (at first use) and bind the f32 backward kernels' library."""
+    return _bind_bwd(BWD_NAME, BWD_SOURCES)
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_library() -> ctypes.CDLL:
+    """Build (at first use) and bind the bf16 forward kernel's library."""
+    return _bind_fwd(BF16_NAME, BF16_SOURCES)
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_bwd_library() -> ctypes.CDLL:
+    """Build (at first use) and bind the bf16 backward kernels' library."""
+    return _bind_bwd(BF16_BWD_NAME, BF16_BWD_SOURCES)
+
+
+def _fwd_kernel(dtype: torch.dtype):
+    """(launch-count name, library) of the forward kernel for ``dtype``; the
+    library's entry point is named after the kernel."""
+    if dtype == torch.bfloat16:
+        return BF16_NAME, bf16_library()
+    return NAME, library()
+
+
+def _bwd_kernel(dtype: torch.dtype):
+    """(launch-count name, library) of the backward kernels for ``dtype``;
+    the library's entry point is named after the kernel."""
+    if dtype == torch.bfloat16:
+        return BF16_BWD_NAME, bf16_bwd_library()
+    return BWD_NAME, bwd_library()
 
 
 # --------------------------------------------------------------------- #
@@ -207,12 +256,15 @@ def flash_attention_bwd_reference(
     seed: int = 0,
     block_q: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of the backward, in f32 from the kernels'
-    formulas: with P the softmax and M the dropout multiplier,
-    dV = (P o M)^T dO, dP = dO V^T o M, D = rowsum(P o dP),
-    dS = P o (dP - D), dQ = scale dS K, dK = scale dS^T Q."""
+    """The plain PyTorch version of the backward from the kernels' formulas:
+    with P the softmax and M the dropout multiplier, dV = (P o M)^T dO,
+    dP = dO V^T o M, D = rowsum(P o dP), dS = P o (dP - D), dQ = scale dS K,
+    dK = scale dS^T Q.  Sums in f32; for bf16 inputs P o M and dS are
+    rounded to bf16 before their products, as the TPU kernel rounds them
+    (flash.py:190, :201), and the gradients once at the end."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     qf, kf, vf, gf = (x.float() for x in (q, k, v, dout))
+    carrier = lambda x: x.to(q.dtype).float()  # noqa: E731  (identity for f32)
     p = _probs(q, k, kv_valid, causal)
     dp = torch.matmul(gf, vf.transpose(-1, -2))
     pm = p
@@ -220,8 +272,8 @@ def flash_attention_bwd_reference(
         B, H, Tq, _ = q.shape
         mask = dropout_mask(B, H, Tq, k.shape[2], dropout_rate, seed, block_q, q.device)
         pm, dp = p * mask, dp * mask
-    dv = torch.matmul(pm.transpose(-1, -2), gf)
-    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dv = torch.matmul(carrier(pm).transpose(-1, -2), gf)
+    ds = carrier(p * (dp - (p * dp).sum(-1, keepdim=True)))
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -248,8 +300,8 @@ def _check(q, k, v, kv_valid) -> torch.device:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {q.device}")
     if q.device.type == "cuda":
-        if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-            raise ValueError(f"q, k, v must share one dtype of {list(_DTYPE_CODES)}; "
+        if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+            raise ValueError(f"q, k, v must share one dtype of {list(DTYPES)}; "
                              f"got {q.dtype}, {k.dtype}, {v.dtype}")
         if Dh not in HEAD_DIMS:
             raise ValueError(f"head dim {Dh} not in {HEAD_DIMS}")
@@ -284,31 +336,43 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def fwd_split(B: int, H: int, Tq: int, Tk: int, Dh: int, dtype=torch.float32) -> int:
     """The number of cluster blocks that share one q tile's keys in the
-    forward kernel at this shape (1 = no split), as a launch with ``split=0``
-    chooses it on the current card."""
-    s = library().flash_attn_fwd_split(B, H, Tq, Tk, Dh, _DTYPE_CODES[dtype])
+    forward kernel for ``dtype`` at this shape (1 = no split), as a launch
+    with ``split=0`` chooses it on the current card."""
+    name, lib = _fwd_kernel(dtype)
+    s = getattr(lib, f"{name}_split")(B, H, Tq, Tk, Dh)
     if s < 1:
-        raise RuntimeError(f"{NAME}: no split for this shape: cudaError_t {-s}")
+        raise RuntimeError(f"{name}: no split for this shape: cudaError_t {-s}")
     return s
 
 
+def bwd_scratch_floats(B: int, H: int, Tq: int, Tk: int, Dh: int, dtype=torch.float32) -> int:
+    """Floats of f32 scratch the backward kernels for ``dtype`` take for
+    their dQ partials at this shape."""
+    name, lib = _bwd_kernel(dtype)
+    n = getattr(lib, f"{name}_scratch_floats")(B, H, Tq, Tk, Dh)
+    if n < 0:
+        raise ValueError(f"{name}: no scratch size for this shape")
+    return n
+
+
 def _launch_fwd(q, k, v, kv_valid, causal, dropout_rate, seed, block_q, with_lse, split=0):
-    """Launch the forward kernel; ``split`` forces the number of cluster
-    blocks per q tile (1-4; 0 lets the kernel choose)."""
+    """Launch the forward kernel for q's dtype; ``split`` forces the number
+    of cluster blocks per q tile (1-4; 0 lets the kernel choose)."""
     B, H, Tq, Dh = q.shape
     Tk = k.shape[2]
     drop = _dropout_args(dropout_rate, seed, Tq, Tk, block_q)
     out = torch.empty((B, Tq, H, Dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device) if with_lse else None
     valid = _valid_f32(kv_valid)  # held until the launch is enqueued
-    fn = library().flash_attn_fwd
+    name, lib = _fwd_kernel(q.dtype)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), out.data_ptr(),
-                 _ptr(lse), _strides(q, k, v, out), B, H, Tq, Tk, Dh, _DTYPE_CODES[q.dtype],
+        err = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), out.data_ptr(),
+                 _ptr(lse), _strides(q, k, v, out), B, H, Tq, Tk, Dh,
                  int(causal), split, *drop, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{NAME} launch failed: cudaError_t {err}")
-    launch_counts[NAME] += 1
+        raise RuntimeError(f"{name} launch failed: error {err} (a cudaError_t, or 10000 + the "
+                           "CUresult of a refused tensor map)")
+    launch_counts[name] += 1
     return out, lse
 
 
@@ -346,23 +410,21 @@ def flash_attention_bwd(
     _check_rows("out", out)
     _check_rows("dout", dout)
     drop = _dropout_args(dropout_rate, seed, Tq, Tk, block_q)
-    lib = bwd_library()
+    name, lib = _bwd_kernel(q.dtype)
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=device) for x in (q, k, v))
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=device)
     # the dQ partial of every key block, summed in a fixed order by the last kernel
-    dq_part = torch.empty(lib.flash_attn_bwd_scratch_floats(B, H, Tq, Tk, Dh, _DTYPE_CODES[q.dtype]),
-                          dtype=torch.float32, device=device)
+    dq_part = torch.empty(bwd_scratch_floats(B, H, Tq, Tk, Dh, q.dtype), dtype=torch.float32, device=device)
     valid = _valid_f32(kv_valid)  # held until the launches are enqueued
     with torch.cuda.device(device):
-        err = lib.flash_attn_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), out.data_ptr(),
+        err = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), out.data_ptr(),
                                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
                                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                  _strides(q, k, v, out, dout, dq, dk, dv), B, H, Tq, Tk, Dh,
-                                 _DTYPE_CODES[q.dtype], int(causal), *drop,
-                                 torch.cuda.current_stream(device).cuda_stream)
+                                 int(causal), *drop, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{BWD_NAME} launch failed: cudaError_t {err}")
-    launch_counts[BWD_NAME] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    launch_counts[name] += 1
     return dq, dk, dv
 
 

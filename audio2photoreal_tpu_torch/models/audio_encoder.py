@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from audio2photoreal_tpu_torch.core.config import WAV2VEC_SR
+from audio2photoreal_tpu_torch.core import dtypes
 from audio2photoreal_tpu_torch.ops.resample import resample
 
 # (dim, kernel, stride) — fairseq wav2vec/vq-wav2vec feature extractor spec
@@ -55,14 +56,16 @@ class GroupNormAll(nn.GroupNorm):
     """fairseq's Fp32GroupNorm(1, dim): one group, so the moments are over
     (C, T) jointly, with the population variance and eps 1e-5.  With a
     [B, T] ``mask`` the moments are taken over the frames it keeps (the JAX
-    package's ``_GroupNormAll`` with ``mask``); every frame is normalised."""
+    package's ``_GroupNormAll`` with ``mask``); every frame is normalised.
+    The moments and the affine are f32 whatever x's dtype, and the result
+    is cast back to it."""
 
     def __init__(self, dim: int):
         super().__init__(1, dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if mask is None:
-            return super().forward(x)
+            return F.group_norm(x.float(), 1, self.weight, self.bias, self.eps).to(x.dtype)
         x32 = x.float()
         m = mask[:, None, :].float()
         cnt = torch.clamp(m.sum(dim=(1, 2), keepdim=True) * x.shape[1], min=1.0)
@@ -73,12 +76,18 @@ class GroupNormAll(nn.GroupNorm):
 
 
 class ConvFeatureExtractor(nn.Module):
-    """fairseq ConvFeatureExtractionModel: [B, S] -> [B, T, 512]."""
+    """fairseq ConvFeatureExtractionModel: [B, S] -> [B, T, 512].
+
+    ``compute_dtype="bfloat16"`` runs the convs on bf16 operands with f32
+    sums and bf16 activations between the layers, the group-norm moments in
+    f32, as the JAX package's frozen frontend does for training
+    (audio_encoder.py:113-160); the features leave in f32."""
 
     def __init__(self, spec: Tuple[Tuple[int, int, int], ...] = VQ_WAV2VEC_SPEC,
-                 log_compression: bool = True):
+                 log_compression: bool = True, compute_dtype: str = "float32"):
         super().__init__()
         self.log_compression = log_compression
+        self.dtype = dtypes.compute_dtype(compute_dtype)
         layers = []
         cin = 1
         for dim, k, s in spec:
@@ -96,21 +105,21 @@ class ConvFeatureExtractor(nn.Module):
         receptive field lies in the real signal, as the JAX package's
         ``ConvFeatureExtractor`` does; the first ``feature_frames(n_valid)``
         frames then equal the extractor's on the unpadded signal."""
+        dt = self.dtype
         x = wav[:, None, :]
-        if n_valid is None:
-            for layer in self.conv_layers:
-                x = layer(x)
-        else:
-            n = torch.as_tensor(n_valid, device=wav.device).reshape(-1, 1)
-            rf, jump = 1, 1
-            for layer in self.conv_layers:
-                conv, norm = layer[0], layer[2]
-                x = conv(x)
-                rf += (conv.kernel_size[0] - 1) * jump
-                jump *= conv.stride[0]
+        n = None if n_valid is None else torch.as_tensor(n_valid, device=wav.device).reshape(-1, 1)
+        rf, jump = 1, 1
+        for layer in self.conv_layers:
+            conv, norm = layer[0], layer[2]
+            x = F.conv1d(x.to(dt), conv.weight.to(dt), None, conv.stride)
+            rf += (conv.kernel_size[0] - 1) * jump
+            jump *= conv.stride[0]
+            mask = None
+            if n is not None:
                 frames = torch.arange(x.shape[-1], device=wav.device)
                 mask = (frames[None] < (n - rf) // jump + 1).float().expand(x.shape[0], -1)
-                x = torch.relu(norm(x, mask))
+            x = norm(x, mask)  # one statement each: the conv's output is freed before the ReLU's
+            x = torch.relu(x)
         x = x.transpose(1, 2).float()
         if self.log_compression:
             x = torch.log(torch.abs(x) + 1.0)
@@ -120,12 +129,13 @@ class ConvFeatureExtractor(nn.Module):
 class Wav2VecFeatureExtractor(nn.Module):
     """[B, S, 2] raw 48 kHz stereo -> [B, Ta, 1024] (reference:
     model/diffusion.py:285-293): each channel resampled to 16 kHz and run
-    through the frozen extractor, the channels concatenated."""
+    through the frozen extractor (in ``compute_dtype``), the channels
+    concatenated."""
 
-    def __init__(self, input_sr: int = 48_000):
+    def __init__(self, input_sr: int = 48_000, compute_dtype: str = "float32"):
         super().__init__()
         self.input_sr = input_sr
-        self.feature_extractor = ConvFeatureExtractor()
+        self.feature_extractor = ConvFeatureExtractor(compute_dtype=compute_dtype)
 
     def forward(self, audio: torch.Tensor, n_valid=None) -> torch.Tensor:
         """``n_valid`` (48 kHz samples before zero padding, an int or [B])

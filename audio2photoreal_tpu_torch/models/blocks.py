@@ -25,6 +25,12 @@ mode (``nn.Module.training``) and draws from the ``generator`` handed down
 the call: one seed per call site, as the JAX package folds one key per site.
 With ``hash_dropout`` the masks are ``hash_drop_mult``'s position hash, else
 Bernoulli draws.
+
+Every module takes a compute ``dtype`` (the JAX modules' flax ``dtype=``):
+its parameters stay f32 and are cast per call, with its inputs, by
+``linear`` and ``layer_norm``; a norm computes its statistics and affine in
+f32 and casts once; the residual stream, the attention and the dropout masks
+run in that dtype.  Under f32 every cast is the identity.
 """
 
 from __future__ import annotations
@@ -41,6 +47,45 @@ from audio2photoreal_tpu_torch.ops.attention import NEG_INF, dot_product_attenti
 from audio2photoreal_tpu_torch.ops.rotary import RotaryTable, apply_rotary
 
 INT32_MAX = 2**31 - 1
+
+
+def kept(owner: nn.Module, key, params, dtype: torch.dtype, make):
+    """``make()``, a tensor (or tuple of tensors) in ``dtype`` made from the
+    parameters ``params`` of ``owner``: a cast, a stack.  Under autograd
+    made fresh, so the gradient reaches the f32 parameters; without it
+    (sampling) kept on ``owner`` under ``key`` until one of ``params``
+    changes in place or moves, so a DDIM loop makes it once instead of once
+    a step."""
+    if torch.is_grad_enabled():
+        return make()
+    tag = (dtype, *((p._version, p.data_ptr(), p.device) for p in params))
+    casts = owner.__dict__.setdefault("_casts", {})
+    hit = casts.get(key)
+    if hit is None or hit[0] != tag:
+        hit = casts[key] = (tag, make())
+    return hit[1]
+
+
+def cast_param(owner: nn.Module, key, t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` (a parameter of ``owner``, or a view of one) in ``dtype``, kept
+    as ``kept`` keeps it."""
+    if t.dtype == dtype:
+        return t
+    return kept(owner, key, (t,), dtype, lambda: t.to(dtype))
+
+
+def linear(mod: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``Dense(dtype=...)``: x, the weight and the bias in ``dtype``
+    (the sums inside the product in f32)."""
+    bias = None if mod.bias is None else cast_param(mod, "bias", mod.bias, dtype)
+    return F.linear(x.to(dtype), cast_param(mod, "weight", mod.weight, dtype), bias)
+
+
+def layer_norm(mod: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``LayerNorm(dtype=...)``: statistics and affine in f32, the
+    result cast once to ``dtype``.  (CUDA's layer_norm refuses a bf16 input
+    with f32 parameters, so the input is widened first.)"""
+    return F.layer_norm(x.float(), mod.normalized_shape, mod.weight, mod.bias, mod.eps).to(dtype)
 
 
 def draw_seed(generator: Optional[torch.Generator], high: int = INT32_MAX) -> int:
@@ -85,15 +130,22 @@ class Dropout(nn.Module):
 
 
 class DenseFiLM(nn.Module):
-    """t-vector [B, D] -> (scale, shift), each [B, 1, D]; ``block`` is the
-    reference's Sequential(Mish, Linear)."""
+    """t-vector [B, D] -> (scale, shift), each [B, 1, D] in ``dtype``;
+    ``block`` is the reference's Sequential(Mish, Linear), the Mish in t's
+    dtype."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.block = nn.Sequential(nn.Mish(), nn.Linear(dim, dim * 2))
 
     def forward(self, t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        scale, shift = self.block(t)[:, None, :].chunk(2, dim=-1)
+        return self.from_mish(F.mish(t))
+
+    def from_mish(self, mish_t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` given Mish(t), which a layer computes once for all
+        its FiLM blocks."""
+        scale, shift = linear(self.block[1], mish_t, self.dtype)[:, None, :].chunk(2, dim=-1)
         return scale, shift
 
 
@@ -110,23 +162,28 @@ class MultiHeadAttention(nn.Module):
     (``kernels/flash_attn.py``) when there is no bias and both sequence axes
     reach ``FLASH_MIN_LEN``, exactly the JAX package's gate.  In training,
     ``dropout`` drops attention probabilities: inside the kernels from one
-    int32 seed per call (blocks.py:184), else by a Bernoulli draw."""
+    int32 seed per call (blocks.py:184), else by a Bernoulli draw.  A
+    self-attention (q and k from one tensor) projects q and k as one [D, 2D]
+    product, as the JAX package does (blocks.py:206-222).  Projections and
+    attention run in ``dtype``."""
 
     FLASH_MIN_LEN = 128
 
-    def __init__(self, dim: int, heads: int, flash: bool = False, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int, flash: bool = False, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dim, self.heads, self.flash, self.dropout = dim, heads, flash, dropout
+        self.dim, self.heads, self.flash, self.dropout, self.dtype = dim, heads, flash, dropout, dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.zeros_(self.in_proj_bias)
 
-    def _proj(self, x: torch.Tensor, i: int) -> torch.Tensor:
-        D = self.dim
-        return F.linear(x, self.in_proj_weight[i * D : (i + 1) * D],
-                        self.in_proj_bias[i * D : (i + 1) * D])
+    def _proj(self, x: torch.Tensor, i: int, n: int = 1) -> torch.Tensor:
+        """x through the projections i .. i+n-1 of the packed weight, as one product."""
+        D, dt = self.dim, self.dtype
+        return F.linear(x.to(dt), cast_param(self, ("w", i, n), self.in_proj_weight[i * D : (i + n) * D], dt),
+                        cast_param(self, ("b", i, n), self.in_proj_bias[i * D : (i + n) * D], dt))
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:  # [B, T, D] -> [B, H, T, Dh]
         return x.unflatten(-1, (self.heads, -1)).transpose(1, 2)
@@ -142,7 +199,9 @@ class MultiHeadAttention(nn.Module):
         bias: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        q = self._proj(q_in, 0)
+        return self._attend_projected(self._proj(q_in, 0), k, v, bias, generator)
+
+    def _attend_projected(self, q, k, v, bias=None, generator=None) -> torch.Tensor:
         B, Tq, _ = q.shape
         rate = self.dropout if self.training else 0.0
         if self.flash and bias is None and min(Tq, k.shape[1]) >= self.FLASH_MIN_LEN:
@@ -154,10 +213,13 @@ class MultiHeadAttention(nn.Module):
         else:
             gen = device_generator(generator, q.device) if rate > 0.0 else None
             out = dot_product_attention(self._split(q), self._split(k), self._split(v), bias, rate, gen)
-        return self.out_proj(out.transpose(1, 2).reshape(B, Tq, self.dim))
+        return linear(self.out_proj, out.transpose(1, 2).reshape(B, Tq, self.dim), self.dtype)
 
     def forward(self, q_in, k_in, v_in, bias: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if q_in is k_in:  # self-attention: q and k as one product
+            q, k = self._proj(q_in, 0, 2).split(self.dim, dim=-1)
+            return self._attend_projected(q, k, self._proj(v_in, 2), bias, generator)
         k, v = self.project_kv(k_in, v_in)
         return self.attend(q_in, k, v, bias, generator)
 
@@ -168,29 +230,37 @@ def _maybe_rotate(x: torch.Tensor, rotary: Optional[RotaryTable], offset: int = 
 
 class FiLMDecoderLayer(nn.Module):
     """self-attn -> FiLM, cross-attn (audio) -> FiLM, [cross-attn 2 (keyframes)
-    -> FiLM], feed-forward -> FiLM; all pre-norm with residuals."""
+    -> FiLM], feed-forward -> FiLM; all pre-norm with residuals, in ``dtype``."""
 
     def __init__(self, dim: int, heads: int, ff_size: int, use_cm: bool = False,
-                 flash: bool = False, dropout: float = 0.0, hash_dropout: bool = False):
+                 flash: bool = False, dropout: float = 0.0, hash_dropout: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.use_cm = use_cm
-        self.self_attn = MultiHeadAttention(dim, heads, flash, dropout)
-        self.multihead_attn = MultiHeadAttention(dim, heads, flash, dropout)
+        self.use_cm, self.dtype = use_cm, dtype
+        self.self_attn = MultiHeadAttention(dim, heads, flash, dropout, dtype)
+        self.multihead_attn = MultiHeadAttention(dim, heads, flash, dropout, dtype)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.film1 = DenseFiLM(dim)
-        self.film2 = DenseFiLM(dim)
-        self.film3 = DenseFiLM(dim)
+        self.film1 = DenseFiLM(dim, dtype)
+        self.film2 = DenseFiLM(dim, dtype)
+        self.film3 = DenseFiLM(dim, dtype)
         self.linear1 = nn.Linear(dim, ff_size)
         self.linear2 = nn.Linear(ff_size, dim)
         self.ff_drop = Dropout(dropout, hash_dropout)  # after the GELU
         self.drop = Dropout(dropout, hash_dropout)  # on each sublayer output
         if use_cm:
             # the keyframe memory is ~20 tokens: never built with the kernel
-            self.multihead_attn2 = MultiHeadAttention(dim, heads, dropout=dropout)
+            self.multihead_attn2 = MultiHeadAttention(dim, heads, dropout=dropout, dtype=dtype)
             self.norm2a = nn.LayerNorm(dim, eps=1e-5)
-            self.film2a = DenseFiLM(dim)
+            self.film2a = DenseFiLM(dim, dtype)
+
+    def _norm(self, norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(norm, x, self.dtype)
+
+    def _ff(self, x: torch.Tensor) -> torch.Tensor:
+        """linear1 -> erf GELU (as the reference) in the compute dtype."""
+        return F.gelu(linear(self.linear1, self._norm(self.norm3, x), self.dtype))
 
     def forward(
         self,
@@ -207,27 +277,28 @@ class FiLMDecoderLayer(nn.Module):
         x_offset: int = 0,  # rotary position of x's first row
     ) -> torch.Tensor:
         g = generator
-        h = self.norm1(x)
+        mt = F.mish(t)  # the FiLM blocks' shared input
+        h = self._norm(self.norm1, x)
         qk = _maybe_rotate(h, rotary, x_offset)
         h = self.drop(self.self_attn(qk, qk, h, self_bias, generator=g), g)
-        x = x + featurewise_affine(h, self.film1(t))
+        x = x + featurewise_affine(h, self.film1.from_mish(mt))
 
-        h = self.norm2(x)
+        h = self._norm(self.norm2, x)
         q = _maybe_rotate(h, rotary, x_offset)
         if cross_kv is None:  # K rotated, V not (JAX blocks.py:310-311)
             cross_kv = self.precompute_cross(memory, rotary)
         h = self.drop(self.multihead_attn.attend(q, *cross_kv, generator=g), g)
-        x = x + featurewise_affine(h, self.film2(t))
+        x = x + featurewise_affine(h, self.film2.from_mish(mt))
 
         if self.use_cm:
-            h = self.norm2a(x)
+            h = self._norm(self.norm2a, x)
             q = _maybe_rotate(h, rotary, x_offset)
             h = self.drop(self.multihead_attn2(q, _maybe_rotate(memory2, rotary), memory2, generator=g), g)
-            x = x + featurewise_affine(h, self.film2a(t))
+            x = x + featurewise_affine(h, self.film2a.from_mish(mt))
 
-        h = self.ff_drop(F.gelu(self.linear1(self.norm3(x))), g)  # erf GELU, as the reference
-        h = self.drop(self.linear2(h), g)
-        return x + featurewise_affine(h, self.film3(t))
+        h = self.ff_drop(self._ff(x), g)
+        h = self.drop(linear(self.linear2, h, self.dtype), g)
+        return x + featurewise_affine(h, self.film3.from_mish(mt))
 
     # ------------------------------------------------------------------ #
     # cached single-token decode (the guide LM; JAX blocks.py:334-372)
@@ -253,7 +324,8 @@ class FiLMDecoderLayer(nn.Module):
         them).  Cache rows past ``pos`` are masked with ``NEG_INF``, so they
         may hold anything."""
         L = self_k.shape[1]
-        h = self.norm1(x_tok)
+        mt = F.mish(t)
+        h = self._norm(self.norm1, x_tok)
         qk = _maybe_rotate(h, rotary, pos)
         new_k, new_v = self.self_attn.project_kv(qk, h)
         self_k[:, pos : pos + 1] = new_k
@@ -261,41 +333,45 @@ class FiLMDecoderLayer(nn.Module):
         bias = torch.full((L,), NEG_INF, device=x_tok.device)
         bias[: pos + 1] = 0.0
         h = self.self_attn.attend(qk, self_k, self_v, bias)
-        x = x_tok + featurewise_affine(h, self.film1(t))
+        x = x_tok + featurewise_affine(h, self.film1.from_mish(mt))
 
-        h = self.norm2(x)
+        h = self._norm(self.norm2, x)
         h = self.multihead_attn.attend(_maybe_rotate(h, rotary, pos), cross_k, cross_v)
-        x = x + featurewise_affine(h, self.film2(t))
+        x = x + featurewise_affine(h, self.film2.from_mish(mt))
 
-        h = self.linear2(F.gelu(self.linear1(self.norm3(x))))
-        return x + featurewise_affine(h, self.film3(t))
+        h = linear(self.linear2, self._ff(x), self.dtype)
+        return x + featurewise_affine(h, self.film3.from_mish(mt))
 
 
 class FeedForward(nn.Module):
     """Linear -> activation -> dropout -> Linear, as the reference's
-    ``ff`` Sequential (indices 0 and 3 hold the weights).  The activation is
-    erf GELU unless given (the lip regressor's is ReLU)."""
+    ``ff`` Sequential (indices 0 and 3 hold the weights), in ``dtype``.  The
+    activation is erf GELU unless given (the lip regressor's is ReLU)."""
 
-    def __init__(self, dim: int, hidden: int, dropout: float = 0.1, activation: Optional[nn.Module] = None):
+    def __init__(self, dim: int, hidden: int, dropout: float = 0.1, activation: Optional[nn.Module] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.ff = nn.Sequential(nn.Linear(dim, hidden), activation or nn.GELU(), Dropout(dropout),
                                 nn.Linear(hidden, dim))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         lin1, act, drop, lin2 = self.ff
-        return lin2(drop(act(lin1(x)), generator))
+        return linear(lin2, drop(act(linear(lin1, x, self.dtype)), generator), self.dtype)
 
 
 class RotaryEncoderLayer(nn.Module):
     """Pre-norm self-attention with rotary Q/K (the full d_model rotated
     before the projections) and a GELU feed-forward, each sublayer output
     dropped before its residual add (reference: TransformerEncoderLayerRotary,
-    transformer_modules.py:36-103).  The face denoiser's cond-encoder."""
+    transformer_modules.py:36-103).  The face denoiser's cond-encoder, in
+    ``dtype``."""
 
     def __init__(self, dim: int, heads: int, ff_size: int, dropout: float = 0.1, flash: bool = False,
-                 hash_dropout: bool = False):
+                 hash_dropout: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.self_attn = MultiHeadAttention(dim, heads, flash, dropout)
+        self.dtype = dtype
+        self.self_attn = MultiHeadAttention(dim, heads, flash, dropout, dtype)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.linear1 = nn.Linear(dim, ff_size)
@@ -305,9 +381,9 @@ class RotaryEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, rotary: Optional[RotaryTable] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        g = generator
-        h = self.norm1(x)
+        g, dt = generator, self.dtype
+        h = layer_norm(self.norm1, x, dt)
         qk = _maybe_rotate(h, rotary)
         x = x + self.drop(self.self_attn(qk, qk, h, generator=g), g)
-        h = self.ff_drop(F.gelu(self.linear1(self.norm2(x))), g)
-        return x + self.drop(self.linear2(h), g)
+        h = self.ff_drop(F.gelu(linear(self.linear1, layer_norm(self.norm2, x, dt), dt)), g)
+        return x + self.drop(linear(self.linear2, h, dt), g)

@@ -24,6 +24,14 @@ model/diffusion.py:82-403):
 
 Module names follow the reference's state dict, which
 ``convert.film_denoiser_state_dict_from_jax`` produces from JAX params.
+
+``cfg.dtype`` sets the compute dtype with the JAX package's policy
+(``core/dtypes.py``): parameters f32, the wide tensors (the residual stream,
+the memory, the cond tokens, the stacked cross K/V, the cond-encoder) in
+bf16 under ``"bfloat16"``, with the pooled conditioning and the time
+embedding kept in f32 and ``final_layer`` promoting back to f32, so the
+post-net and the output are f32 (film_transformer.py:56-87, :391-490).
+``cfg.frontend_dtype`` sets the frozen wav2vec frontend's.
 """
 
 from __future__ import annotations
@@ -35,8 +43,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from audio2photoreal_tpu_torch.core.config import DenoiserConfig
+from audio2photoreal_tpu_torch.core.dtypes import default_policy
 from audio2photoreal_tpu_torch.models.audio_encoder import Wav2VecFeatureExtractor, feature_frames
-from audio2photoreal_tpu_torch.models.blocks import Dropout, FiLMDecoderLayer, RotaryEncoderLayer
+from audio2photoreal_tpu_torch.models.blocks import (
+    Dropout,
+    FiLMDecoderLayer,
+    RotaryEncoderLayer,
+    kept,
+    layer_norm,
+    linear,
+)
 from audio2photoreal_tpu_torch.models.lip_regressor import LipRegressor
 from audio2photoreal_tpu_torch.ops.convs import conv1d, valid_conv1d
 from audio2photoreal_tpu_torch.ops.embeddings import sinusoidal_pos_emb
@@ -85,16 +101,17 @@ class FiLMDenoiser(nn.Module):
         c = self.cfg = cfg
         if c.data_format not in ("pose", "face"):
             raise ValueError(f"data_format must be pose or face; got {c.data_format!r}")
-        if c.dtype != "float32" or c.frontend_dtype != "float32":
-            raise NotImplementedError("bf16 compute: see ROADMAP")
+        self.policy = default_policy(c.dtype)
+        dt = self.dtype = self.policy.compute_dtype
         pose = c.data_format == "pose"
         D, nf = c.latent_dim, c.nfeats
-        self.audio_model = Wav2VecFeatureExtractor().requires_grad_(False)  # frozen
+        # frozen
+        self.audio_model = Wav2VecFeatureExtractor(compute_dtype=c.frontend_dtype).requires_grad_(False)
         if not pose:
-            self.lip_model = LipRegressor().requires_grad_(False)  # frozen
+            self.lip_model = LipRegressor().requires_grad_(False)  # frozen, f32
             self.cond_encoder = nn.ModuleList(
                 RotaryEncoderLayer(D, c.num_heads, c.ff_size, c.dropout, flash=c.flash_attention,
-                                   hash_dropout=c.hash_dropout)
+                                   hash_dropout=c.hash_dropout, dtype=dt)
                 for _ in range(c.cond_encoder_layers)
             )
         self.input_projection = nn.Linear(nf, D)
@@ -127,7 +144,7 @@ class FiLMDenoiser(nn.Module):
             self.post_drop = Dropout(self.POSTNET_DROPOUT, c.hash_dropout)
         self.seqTransDecoder = DecoderStack(
             FiLMDecoderLayer(D, c.num_heads, c.ff_size, use_cm=pose, flash=c.flash_attention,
-                             dropout=c.dropout, hash_dropout=c.hash_dropout)
+                             dropout=c.dropout, hash_dropout=c.hash_dropout, dtype=dt)
             for _ in range(c.num_layers)
         )
         self.final_layer = nn.Linear(D, nf)
@@ -135,6 +152,7 @@ class FiLMDenoiser(nn.Module):
         rot = make_rotary_table(D, max(self.emb_len + 2, c.max_seq_length) + 8)
         self.register_buffer("rotary_cos", rot.cos, persistent=False)
         self.register_buffer("rotary_sin", rot.sin, persistent=False)
+        self.to(self.policy.param_dtype)  # parameters (and the optimizer state built on them) f32 under any policy
 
     def train(self, mode: bool = True) -> "FiLMDenoiser":
         """Training mode for everything but the frozen frontends, which stay
@@ -214,19 +232,22 @@ class FiLMDenoiser(nn.Module):
         ``lip_verts`` stand in for the frozen frontends' outputs (the
         trainer's feature cache, ``data/feature_cache.py``): given
         ``encode_audio(audio)`` and ``lip_vertices(audio)`` the result is the
-        raw-audio path's, exactly.  ``audio`` may then be None."""
-        feats = self.encode_audio(audio) if audio_features is None else audio_features.detach()
+        raw-audio path's, exactly.  ``audio`` may then be None.  The frozen
+        features reach the compute dtype before the lip gather and the
+        concat (film_transformer.py:217-221)."""
+        dt = self.dtype
+        feats = (self.encode_audio(audio) if audio_features is None else audio_features.detach()).to(dt)
         if self.cfg.data_format == "face":
-            lip = self.lip_vertices(audio) if lip_verts is None else lip_verts.detach()
+            lip = (self.lip_vertices(audio) if lip_verts is None else lip_verts.detach()).to(dt)
             feats = torch.cat([feats, _resize_nearest(lip, feats.shape[1])], dim=-1)
-            cond_tokens = self.cond_projection(feats)
+            cond_tokens = linear(self.cond_projection, feats, dt)
             rot = RotaryTable(self.rotary_cos, self.rotary_sin)
             for layer in self.cond_encoder:
                 cond_tokens = layer(cond_tokens, rotary=rot, generator=generator)
             return CondTokens(cond_tokens, None)
         if keyframes is None:
             raise ValueError("the pose denoiser needs keyframes")
-        cond_tokens = self.cond_projection(feats)
+        cond_tokens = linear(self.cond_projection, feats, dt)
         kf = keyframes
         if keyframe_valid is not None:
             kf = kf * keyframe_valid[..., None]  # zero the unknown (diffusion.py:319-320)
@@ -239,15 +260,13 @@ class FiLMDenoiser(nn.Module):
 
     def _stacked_cross_kv_weights(self):
         """All layers' cross-attn K (resp. V) projections as one [L*D, D]
-        weight and [L*D] bias: one matmul projects the memory for every layer."""
+        weight and [L*D] bias in the compute dtype: one matmul projects the
+        memory for every layer.  Kept across a sampling loop (``kept``)."""
         D = self.cfg.latent_dim
         ws = [l.multihead_attn.in_proj_weight for l in self.layers]
         bs = [l.multihead_attn.in_proj_bias for l in self.layers]
-        kw = torch.cat([w[D : 2 * D] for w in ws])
-        kb = torch.cat([b[D : 2 * D] for b in bs])
-        vw = torch.cat([w[2 * D :] for w in ws])
-        vb = torch.cat([b[2 * D :] for b in bs])
-        return kw, kb, vw, vb
+        return kept(self, "cross_kv", ws + bs, self.dtype, lambda: tuple(torch.cat(x).to(self.dtype) for x in (
+            [w[D : 2 * D] for w in ws], [b[D : 2 * D] for b in bs], [w[2 * D :] for w in ws], [b[2 * D :] for b in bs])))
 
     def build_cond_cache(self, cond: CondTokens, keep_mask: torch.Tensor,
                          keep_mask_pose: Optional[torch.Tensor] = None) -> dict:
@@ -256,14 +275,16 @@ class FiLMDenoiser(nn.Module):
         pose = self.cfg.data_format == "pose"
         if pose and cond.pose_tokens is None:
             raise ValueError("the pose denoiser needs keyframe tokens")
+        dt = self.dtype
         keep_e = keep_mask[:, None, None]
         n_cond = cond.cond_tokens.shape[1]
-        cond_tokens = torch.where(keep_e, cond.cond_tokens, self.null_cond_embed[:, :n_cond])
-        cond_hidden = self.non_attn_cond_projection(cond_tokens.mean(dim=-2))
+        cond_tokens = torch.where(keep_e, cond.cond_tokens.to(dt), self.null_cond_embed[:, :n_cond].to(dt))
+        # the pooled path stays f32 (a ~2000-token mean in bf16 would lose precision)
+        cond_hidden = self.non_attn_cond_projection(cond_tokens.float().mean(dim=-2))
         cond_hidden = torch.where(keep_mask[:, None], cond_hidden, self.null_cond_hidden)
         # LayerNorm is row-wise: the conditioning rows normed alone equal
         # their rows in norm_cond(concat([cond_tokens, t_tokens]))
-        mem_cond = self.norm_cond(cond_tokens)
+        mem_cond = layer_norm(self.norm_cond, cond_tokens, dt)
         rot = self.rotary
         mem_rot = apply_rotary(mem_cond, rot) if rot is not None else mem_cond
         kw, kb, vw, vb = self._stacked_cross_kv_weights()
@@ -271,7 +292,7 @@ class FiLMDenoiser(nn.Module):
         if pose:
             n_pose = cond.pose_tokens.shape[1]
             keep_p = keep_e if keep_mask_pose is None else keep_mask_pose[:, None, None]
-            pose_tokens = torch.where(keep_p, cond.pose_tokens, self.null_pose_embed[:, :n_pose])
+            pose_tokens = torch.where(keep_p, cond.pose_tokens.to(dt), self.null_pose_embed[:, :n_pose].to(dt))
         return {
             "ks": F.linear(mem_rot, kw, kb),  # [B, n_cond, L*D]
             "vs": F.linear(mem_cond, vw, vb),
@@ -284,12 +305,12 @@ class FiLMDenoiser(nn.Module):
                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, T, nfeats] at original-schedule timesteps t [B] -> model output.
         ``generator`` feeds the dropout draws in training mode."""
-        D = self.cfg.latent_dim
+        D, dt = self.cfg.latent_dim, self.dtype
         B = x.shape[0]
-        h = self.input_projection(x)
-        t_hidden = self.time_mlp(t)
+        h = linear(self.input_projection, x, dt)
+        t_hidden = self.time_mlp(t)  # the time embedding and t_vec in f32
         t_vec = self.to_time_cond(t_hidden) + cache["cond_hidden"]
-        mem_t = self.norm_cond(self.to_time_tokens(t_hidden).reshape(B, 2, D))
+        mem_t = layer_norm(self.norm_cond, self.to_time_tokens(t_hidden).reshape(B, 2, D).to(dt), dt)
         rot = self.rotary
         # the two t-token rows sit after the n_cond audio rows of the memory
         mem_t_rot = apply_rotary(mem_t, rot, cache["n_cond"]) if rot is not None else mem_t
@@ -299,7 +320,7 @@ class FiLMDenoiser(nn.Module):
         for i, layer in enumerate(self.layers):
             cross_kv = (ks[..., i * D : (i + 1) * D], vs[..., i * D : (i + 1) * D])
             h = layer(h, t_vec, cross_kv, cache["pose_tokens"], rotary=rot, generator=generator)
-        out = self.final_layer(h)
+        out = self.final_layer(h.to(self.policy.output_dtype))  # the post-net and the output are f32
         return self._postnet(out, generator) if self.cfg.data_format == "pose" else out
 
     def denoise(

@@ -15,7 +15,8 @@ are host loops of small launches; neither reads the device until the end.
 The Gumbel noise of each step's draw comes from ``draw_gumbel`` (so a test
 can hand in JAX's noise), drawn in the nucleus' sorted order as
 ``jax.random.categorical`` draws it.  The guide computes in f32, as the JAX
-guide does whatever ``GuideConfig.dtype`` says; a bf16 frontend raises.
+guide does whatever ``GuideConfig.dtype`` says; its frozen frontend runs in
+``GuideConfig.frontend_dtype`` (bf16 convs with f32 sums and norms, or f32).
 
 Module names follow the reference's state dict (``pre_audio.{3i}`` convs and
 ``pre_audio.36``, ``non_attn_cond_projection.{0,1,3}``,
@@ -105,11 +106,10 @@ class GuideTransformer(nn.Module):
     def __init__(self, cfg: GuideConfig):
         super().__init__()
         c = self.cfg = cfg
-        if c.frontend_dtype != "float32":
-            raise NotImplementedError("a bf16 frontend: see ROADMAP queue 1, item 5")
         D = c.latent_dim
         self.token_embedding = nn.Embedding(c.tokens + 1, D)
-        self.audio_model = Wav2VecFeatureExtractor().requires_grad_(False)  # frozen
+        # frozen, in its config's frontend dtype; the guide itself computes in f32, as the JAX guide does
+        self.audio_model = Wav2VecFeatureExtractor(compute_dtype=c.frontend_dtype).requires_grad_(False)
         self.pre_audio = AudioPreNet(c.cond_feature_dim)
         self.cond_projection = nn.Linear(c.cond_feature_dim, D)
         self.non_attn_cond_projection = nn.Sequential(

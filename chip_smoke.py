@@ -8,14 +8,18 @@ Run from the root of a checkout; it needs one CUDA card and the CUDA toolkit
 exception and a nonzero exit.
 
 1. device: the card, its power limit, torch/CUDA versions; TF32 is turned off
-   for matmuls and cuDNN convs, so f32 stays f32 throughout.
+   for matmuls and cuDNN convs, so f32 stays f32 throughout; whether cuBLAS
+   may reduce bf16 split-K partials in bf16 (PyTorch's default, left as it
+   is: the bf16 phases below show whether it passes their bars).
 2. build: compile every kernel library from kernels/csrc/ (nvcc, sm_90a), one
    nvcc per library, all started together; ptxas registers and spills; the
-   tensor-core instructions (HMMA / HGMMA) in each attention kernel's SASS
-   (``cuobjdump --dump-sass``), which every kernel with products (the
-   forward, the backward's dK/dV + dQ-partial kernel) must have, f32 and
-   bf16; and the fused multiply-adds (FFMA) in the raster library's kernels,
-   of which the raster kernel must have none.
+   tensor-core instructions in each attention kernel's SASS (``cuobjdump
+   --dump-sass``), which every kernel with products (the forward, the
+   backward's dK/dV + dQ-partial kernel) must have: TF32 HMMA.1688 in the
+   f32 libraries (3xTF32), HGMMA (wgmma) in the bf16 forward and bf16
+   HMMA.16816 in the bf16 backward, and no TF32 HMMA in either bf16 library;
+   and the fused multiply-adds (FFMA) in the raster library's kernels, of
+   which the raster kernel must have none.
 3. kernel vs plain, attention: the CUDA attention kernel against its plain
    PyTorch version on the card, f32 and bf16, at the pose and face
    denoisers' shapes (Dh 64 and 128), the face cond-encoder's 1998 x 1998,
@@ -133,8 +137,42 @@ exception and a nonzero exit.
    build, peak memory, the host batch's MB and assembly time, and the
    device's idle share of a profiled step.
 
+16. main path, bf16 generate (after 8): the face and pose models saved with
+   ``dtype`` and ``frontend_dtype`` bfloat16, as train() writes them at the
+   JAX package's training point; ``generate`` loads them with the frontend
+   in f32 and samples in bf16: face DDIM-500 CFG 10.0, pose on the guide's
+   keyframes DDIM-500 CFG 2.0, 2 clips of 20 s; every attention launch the
+   bf16 kernel's (none of the f32 one); 5 more DDIM steps of each timed and
+   profiled.
+17. bf16 kernels: ``flash_attn_fwd_bf16.cu`` (wgmma, TMA) and
+   ``flash_attn_bwd_bf16.cu`` (bf16 mma.sync, ldmatrix) at the shapes of
+   the bf16 paths (generate B4 600 x 2000 and 600 x 600 at Dh 64 and 128,
+   the cond-encoder B2 1998 x 1998; train B64 at Dh 64 and 128, dropout
+   0.1), on the model's strided views: forward and gradients within 1e-2 of
+   the largest plain output / gradient (the plain versions round where the
+   TPU kernel rounds), the mask exact at rate 0.5 (q = 0 and one-hot v: each
+   output counts kept keys), the backward twice bit for bit; wrapper, CUDA
+   graph, plain and SDPA (rate 0) times, bounds at 989 TFLOP/s, dQ scratch.
+18. bf16 slice parity: the full-width pose and face models in bf16 (f32
+   weights from ``--seed``), encode + cached CFG + DDIM-5, on the card
+   against the CPU in bf16 and in f32: err(card bf16 vs CPU f32) <= 1.5
+   err(CPU bf16 vs CPU f32) + 1e-3 scale.
+19. bf16 train parity: one full-width step at batch 4, pose on raw audio
+   through the bf16 frontend and face on cached features, card bf16 against
+   CPU bf16 and CPU f32: loss 1e-2 relative, each gradient tensor by the
+   ratio bar on its relative L2 error, params after AdamW within 2 lr,
+   parameters and AdamW state f32; the card's step once more with cuBLAS's
+   bf16 reduced-precision reduction off, as a witness of that flag.
+20. main path, bf16 training: ``train()`` at the JAX package's training point
+   (BENCH_r05.json ``train_config``: bf16 compute and frontend, the feature
+   cache, flash attention, hash dropout) for the pose and the face width,
+   batch 64, 4 steps; steps/s, the batch wait, peak memory, the bf16
+   cache's size and build, device ms by kernel (attention, GEMMs, the int64
+   masks) from one profiled step; each checkpoint sampled.
+
 Then one line with every kernel's numbers (the f32 attention rows' bound
-there is the 3xTF32 one, the arithmetic they do), the nvidia-smi line, and last
+there is the 3xTF32 one, the arithmetic they do; the bf16 rows at the pose
+trainer's B64 600 x 2000 Dh 64 shape), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/.
 """
 
@@ -205,6 +243,21 @@ TRAIN_FACE_KERNEL_CASES = [(64, 4, 1998, 1998, 128, 16), (64, 4, 600, 2000, 128,
 # the trainers' synthetic person: 12 scenes of 1790 frames (~60 s) each, 6 of them
 # in the train split (2 val, 4 test held out); 1790 frames make 5963 tokens, three
 # 2000-token cache segments, the last one partial, and 15 lip chunks, the last padded
+# the bf16 kernels at the shapes of the bf16 paths: (B, H, Tq, Tk, Dh, dropout,
+# batch of the plain versions); generate at CFG batch 2 clips x 2 branches
+BF16_KERNEL_CASES = [
+    (4, 4, 600, 2000, 64, 0.0, 4), (4, 4, 600, 600, 64, 0.0, 4),  # pose generate: cross, self
+    (4, 4, 600, 2000, 128, 0.0, 4), (4, 4, 600, 600, 128, 0.0, 4),  # face generate
+    (2, 4, 1998, 1998, 128, 0.0, 2),  # the face cond-encoder, once a clip
+    (64, 4, 600, 2000, 64, 0.1, 64), (64, 4, 600, 600, 64, 0.1, 64),  # pose train
+    (64, 4, 600, 2000, 128, 0.1, 64), (64, 4, 600, 600, 128, 0.1, 64),  # face train: the decoder
+    (64, 4, 1998, 1998, 128, 0.1, 16),  # face train: the cond-encoder
+]
+BF16_MAIN_CASE = (64, 4, 600, 2000, 64)  # the bf16 kernels' numbers in the summary line
+BF16_TOL = 1e-2  # bf16 kernel vs plain, of the largest plain output / gradient
+# the card in bf16 no less accurate than the CPU in bf16, both against the CPU in f32:
+# err(card bf16) <= BF16_RATIO err(CPU bf16) + BF16_SLACK scale
+BF16_RATIO, BF16_SLACK = 1.5, 1e-3
 TRAIN_PERSON = dict(num_scenes=12, frames_per_scene=1790)
 CACHE_REL_TOL = 1e-5  # the feature cache, card vs CPU, of its largest magnitude
 # a cached crop against the live frontend on that crop (the JAX package's bar,
@@ -245,6 +298,9 @@ def phase_device() -> str:
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         # cuBLAS may reduce bf16 split-K partials in bf16; the port leaves the default
+         matmul_allow_bf16_reduced_precision_reduction=(
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction),
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     return smi
 
@@ -254,6 +310,8 @@ def phase_build() -> None:
 
     libraries = [(flash_attn.NAME, flash_attn.SOURCES, flash_attn.library),
                  (flash_attn.BWD_NAME, flash_attn.BWD_SOURCES, flash_attn.bwd_library),
+                 (flash_attn.BF16_NAME, flash_attn.BF16_SOURCES, flash_attn.bf16_library),
+                 (flash_attn.BF16_BWD_NAME, flash_attn.BF16_BWD_SOURCES, flash_attn.bf16_bwd_library),
                  (raster.NAME, raster.SOURCES, raster.library),
                  (display_pack.NAME, display_pack.SOURCES, display_pack.library)]
 
@@ -296,29 +354,62 @@ def _sass_counts(lib: str, op: str) -> dict:
     return counts
 
 
+def _sass_ops(lib: str, op: str) -> dict:
+    """{kernel (mangled): Counter of the distinct instructions matching the
+    regex ``op``} in a built library's SASS."""
+    import re
+    from collections import Counter
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    dump = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "--dump-sass", lib],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    ops, name = {}, None
+    for line in dump.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            ops[name] = Counter()
+        elif name:
+            ops[name].update(re.findall(op, line))
+    return ops
+
+
 def phase_sass() -> None:
     """The tensor-core instructions in each attention kernel: every kernel
     with products must have some (the forward, and the backward's dK/dV
     kernel, which also forms the dQ partials); the backward's delta and dQ
-    kernels are reductions.  The raster kernel must have no fused f32
-    multiply-add (FFMA): its face ids equal the plain version's only because
-    every product and sum rounds on its own.  (The setup kernel's 1/det is a
-    correctly rounded division, whose Newton steps are FFMAs.)"""
+    kernels are reductions.  The f32 kernels' are TF32 HMMA (3xTF32); the
+    bf16 forward's must be HGMMA (wgmma) and the bf16 backward's bf16
+    HMMA.16816, and neither bf16 library may hold a TF32 HMMA.  The raster
+    kernel must have no fused f32 multiply-add (FFMA): its face ids equal the
+    plain version's only because every product and sum rounds on its own.
+    (The setup kernel's 1/det is a correctly rounded division, whose Newton
+    steps are FFMAs.)"""
     from audio2photoreal_tpu_torch.kernels import build, flash_attn, raster
 
-    for name, sources in ((flash_attn.NAME, flash_attn.SOURCES), (flash_attn.BWD_NAME, flash_attn.BWD_SOURCES)):
-        counts = _sass_counts(str(build.library_path(name, sources)), r"\bH(G)?MMA\b")
+    kinds = ("attn_fwd_bf16_kernel", "attn_fwd_kernel", "attn_bwd_bf16_dkdv_kernel", "attn_bwd_dkdv_kernel",
+             "attn_bwd_bf16_dq_kernel", "attn_bwd_dq_kernel", "attn_bwd_bf16_delta_kernel", "attn_bwd_delta_kernel")
+    # library -> the tensor-core opcode (a prefix) each of its product kernels must hold
+    wanted = {flash_attn.NAME: "HMMA.1688.F32.TF32", flash_attn.BWD_NAME: "HMMA.1688.F32.TF32",
+              flash_attn.BF16_NAME: "HGMMA.", flash_attn.BF16_BWD_NAME: "HMMA.16816.F32.BF16"}
+    sources = {flash_attn.NAME: flash_attn.SOURCES, flash_attn.BWD_NAME: flash_attn.BWD_SOURCES,
+               flash_attn.BF16_NAME: flash_attn.BF16_SOURCES, flash_attn.BF16_BWD_NAME: flash_attn.BF16_BWD_SOURCES}
+    for name, op in wanted.items():
+        ops = _sass_ops(str(build.library_path(name, sources[name])), r"\bH(?:G)?MMA\.\S+")
         rows = {}
-        for fn, n in counts.items():
-            kind = next((k for k in ("attn_fwd_kernel", "attn_bwd_dkdv_kernel", "attn_bwd_dq_kernel",
-                                     "attn_bwd_delta_kernel") if k in fn), fn)
-            dtype = "float32" if f"{kind}If" in fn else "bfloat16" if "bfloat16" in fn else "?"
+        for fn, found in ops.items():
+            kind = next((k for k in kinds if k in fn), fn)
             dh = "128" if "Li128E" in fn else "64" if "Li64E" in fn else "?"
-            rows[f"{kind}<{dtype},{dh}>"] = n
-        emit("sass", library=name, tensor_core_instructions=rows)
-        missing = [k for k, n in rows.items() if n == 0 and not k.startswith(("attn_bwd_delta", "attn_bwd_dq"))]
-        if missing or not rows:
-            raise AssertionError(f"{name}: no tensor-core instruction in {missing or 'any kernel'}")
+            rows[f"{kind}<{dh}>"] = dict(found)
+        emit("sass", library=name, wanted=op, tensor_core_instructions=rows)
+        products = {k: r for k, r in rows.items() if "_delta_" not in k and "_dq_" not in k}
+        missing = [k for k, r in products.items() if not any(o.startswith(op) for o in r)]
+        if missing or not products:
+            raise AssertionError(f"{name}: no {op} in {missing or 'any kernel'}: {rows}")
+        if name in (flash_attn.BF16_NAME, flash_attn.BF16_BWD_NAME) and any(
+                "TF32" in o for r in rows.values() for o in r):
+            raise AssertionError(f"{name}: a bf16 kernel holds TF32 HMMA: {rows}")
     counts = _sass_counts(str(build.library_path(raster.NAME, raster.SOURCES)), r"\bFFMA\b")
     rows = {next((k for k in ("raster_setup_kernel", "raster_scan_kernel", "raster_fill_kernel", "raster_kernel")
                   if k in fn), fn): n for fn, n in counts.items()}
@@ -380,6 +471,7 @@ def phase_kernels(seed: int) -> dict:
     from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention, flash_attention_reference
     from audio2photoreal_tpu_torch.ops.attention import causal_bias, padding_bias
 
+    from audio2photoreal_tpu_torch.kernels import flash_attn
     from audio2photoreal_tpu_torch.kernels.flash_attn import fwd_split
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -423,7 +515,7 @@ def phase_kernels(seed: int) -> dict:
                        max_abs_err=err, tol=TOL[name], ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                        library_ms=l1, library_max_abs_err=lib_err, bound_ms=bound_ms, bound_by=bound_by,
                        bound_tc_ms=bound_tc_ms, bound_tc_by=bound_tc_by)
-            emit("kernel_vs_plain", kernel="flash_attn_fwd", **row)
+            emit("kernel_vs_plain", kernel=flash_attn.BF16_NAME if name == "bfloat16" else flash_attn.NAME, **row)
             if not err <= TOL[name]:
                 raise AssertionError(f"flash_attn_fwd disagrees with its plain version: {row}")
             if (B, H, Tq, Tk, Dh, masked) == MAIN_CASE and name == "float32":
@@ -1035,6 +1127,13 @@ def _profile_guide(guide_dir: str, vq_dir: str, seed: int, num_keyframes: int = 
                 guide_decode_device_ms_per_token_step=(busy_ms - encode_busy_ms) / steps)
 
 
+def _is_gemm(kernel: str) -> bool:
+    """A cuBLAS / cuBLASLt matrix product's kernel, by name (``nvjet_*`` on
+    the H100 under CUDA 12.8, ``*gemm*`` / ``*xmma*`` elsewhere)."""
+    k = kernel.lower()
+    return "gemm" in k or "xmma" in k or k.startswith("nvjet")
+
+
 def _profile_ddim(model_dir: str, guidance: float, seed: int, steps: int = 5) -> dict:
     """``steps`` DDIM steps of generate's loop (cached CFG, 2 clips of 20 s,
     random z-normed audio) on a model loaded as generate loads it: the wall
@@ -1082,8 +1181,8 @@ def _profile_ddim(model_dir: str, guidance: float, seed: int, steps: int = 5) ->
     busy = sum(per.values())
     if busy == 0.0:
         raise AssertionError("torch.profiler recorded no device time")
-    attn = sum(v for k, v in per.items() if "attn_fwd_kernel" in k)
-    gemm = sum(v for k, v in per.items() if "gemm" in k.lower())
+    attn = sum(v for k, v in per.items() if "attn_fwd_" in k)
+    gemm = sum(v for k, v in per.items() if _is_gemm(k))
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
     return dict(profiled_steps=steps, step_wall_ms=wall_ms, step_device_ms=busy,
                 step_idle_share=1.0 - busy / wall_ms, step_device_launches=launches / steps,
@@ -1378,7 +1477,8 @@ def phase_train_kernels(seed: int) -> dict:
                        fwd_no_dropout_ms=(fn1 + fn2) / 2, mask_in_kernel_ms=(fk1 + fk2 - fn1 - fn2) / 2,
                        mask_plain_ms=mask_plain_ms, mask_bound_ms=mask_bound_ms,
                        bound_ms=bound_ms, bound_by=bound_by, bound_tc_ms=bound_tc_ms, bound_tc_by=bound_tc_by)
-            emit("kernel_vs_plain", kernel="flash_attn_bwd", **row)
+            emit("kernel_vs_plain", kernel=("flash_attn_fwd_bf16+flash_attn_bwd_bf16" if name == "bfloat16"
+                                            else "flash_attn_fwd+flash_attn_bwd"), **row)
             if not (err <= GRAD_TOL[name] * scale and fwd_err <= TOL[name] and identical):
                 raise AssertionError(f"flash_attn_bwd disagrees with its plain version: {row}")
             if (B, H, Tq, Tk, Dh, masked) == TRAIN_MAIN_CASE and name == "float32":
@@ -1475,7 +1575,7 @@ def phase_train_kernels_face(seed: int) -> list:
         bwd_peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
         identical = all(torch.equal(a, b) for a, b in zip(first, bwd()))
         del first
-        scratch_gb = 4 * flash_attn.bwd_library().flash_attn_bwd_scratch_floats(B, H, Tq, Tk, Dh, 0) / 1e9
+        scratch_gb = 4 * flash_attn.bwd_scratch_floats(B, H, Tq, Tk, Dh) / 1e9
         k1, k2 = _time_ms(bwd, **it), _time_ms(bwd, **it)
         fk1 = _time_ms(lambda: flash_attention(q, k, v, *args), **it)
         fk2 = _time_ms(lambda: flash_attention(q, k, v, *args), **it)
@@ -1510,6 +1610,151 @@ def phase_train_kernels_face(seed: int) -> list:
         del q, k, v, do, qp, kp, vp, dop
         torch.cuda.empty_cache()
     return rows
+
+
+def _mask_check_bf16(B, H, Tq, Tk, Dh, dseed, rate: float = 0.5, rows: int = 4) -> dict:
+    """The bf16 forward's replayed mask, exactly, at rate 0.5: with q = 0
+    every probability is 1/Tk, and v_j the one-hot of column j mod Dh, so
+    output (i, c) is mult/Tk times the kept keys of class c, a small count
+    that bf16 holds to a fraction of one key's share mult/Tk.  The bar is
+    0.4 of that share: one wrong mask element moves an output by all of it.
+    The expected counts come from the explicit mask, a few batch rows at a
+    time."""
+    import torch
+
+    from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention, hash_mask_mult, resolve_block_q
+
+    q = torch.zeros((B, H, Tq, Dh), dtype=torch.bfloat16, device="cuda")
+    onehot = torch.nn.functional.one_hot(torch.arange(Tk, device="cuda") % Dh, Dh).to(torch.bfloat16)
+    k = torch.zeros((B, H, Tk, Dh), dtype=torch.bfloat16, device="cuda")
+    v = onehot.expand(B, H, Tk, Dh).contiguous()
+    got = flash_attention(q, k, v, None, False, rate, dseed).float()
+    bq = resolve_block_q(Tq, Tk)
+    nj = -(-Tq // bq)
+    i = torch.arange(Tq, device="cuda").reshape(1, 1, Tq, 1)
+    j = torch.arange(Tk, device="cuda").reshape(1, 1, 1, Tk)
+    err = 0.0
+    for b0 in range(0, B, rows):
+        b1 = min(B, b0 + rows)
+        bh = torch.arange(b0 * H, b1 * H, device="cuda").reshape(b1 - b0, H, 1, 1)
+        mask = hash_mask_mult(dseed, bh * nj + i // bq, i % bq, j, rate)
+        want = torch.matmul(mask, onehot.float()) / Tk
+        err = max(err, (got[b0:b1] - want).abs().max().item())
+        del mask, want
+    share = float(1.0 / (1.0 - rate)) / Tk
+    return dict(mask_rate05_max_abs_err=err, mask_bar=0.4 * share, mask_one_key=share)
+
+
+def phase_kernels_bf16(seed: int) -> dict:
+    """The bf16 attention kernels (flash_attn_fwd_bf16.cu on wgmma + TMA,
+    flash_attn_bwd_bf16.cu on bf16 mma.sync + ldmatrix) at the shapes of the
+    bf16 generate and train paths, on the model's layout (strided head-split
+    views): forward and backward against the plain versions (which round at
+    the TPU kernel's points) within 1e-2 of the largest plain output /
+    gradient, at the path's dropout; the mask exact at rate 0.5; the
+    backward run twice bit for bit; times of the kernels, the plain versions
+    (at ``plain_B``) and SDPA's forward and backward at rate 0 on the same
+    bf16 inputs; bounds at the bf16 tensor-core rate; the backward's dQ
+    scratch."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio2photoreal_tpu_torch.kernels import flash_attn
+    from audio2photoreal_tpu_torch.kernels.flash_attn import (
+        flash_attention,
+        flash_attention_bwd_reference,
+        flash_attention_reference,
+    )
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    summary = {}
+    for B, H, Tq, Tk, Dh, rate, pB in BF16_KERNEL_CASES:
+        q = _split_heads(torch.randn((B, Tq, H * Dh), generator=g, device="cuda").to(bf16), H)
+        kv = torch.randn((B, Tk, 2 * H * Dh), generator=g, device="cuda").to(bf16)
+        k, v = _split_heads(kv[..., : H * Dh], H), _split_heads(kv[..., H * Dh:], H)
+        do = torch.randn((B, H, Tq, Dh), generator=g, device="cuda").to(bf16)
+        dseed = 3_000_017 + Tq + Tk + Dh
+        row = dict(B=B, H=H, Tq=Tq, Tk=Tk, Dh=Dh, dtype="bfloat16", dropout=rate, plain_B=pB,
+                   layout="strided views of [B, T, H*Dh]", fwd_split=flash_attn.fwd_split(B, H, Tq, Tk, Dh, bf16))
+        if rate > 0.0:
+            row.update(_mask_check_bf16(B, H, Tq, Tk, Dh, dseed))
+        args = (None, False, rate, dseed)
+        # against the plain versions at plain_B
+        qp, kp, vp, dop = (x[:pB] for x in (q, k, v, do))
+        qg, kg, vg = (x.clone().requires_grad_() for x in (qp, kp, vp))
+        out = flash_attention(qg, kg, vg, *args)
+        grads = torch.autograd.grad(out, (qg, kg, vg), dop)
+        want_out = flash_attention_reference(qp, kp, vp, *args)
+        want = flash_attention_bwd_reference(qp, kp, vp, dop, *args)
+        torch.cuda.synchronize()
+        out_scale = want_out.float().abs().max().item()
+        fwd_err = (out.detach().float() - want_out.float()).abs().max().item()
+        scale = max(w.float().abs().max().item() for w in want)
+        err = max((a.float() - w.float()).abs().max().item() for a, w in zip(grads, want))
+        del out, grads, want_out, want, qg, kg, vg
+        with torch.no_grad():  # the forward at rate 0 as well (generate's, and the summary line's)
+            want_out = flash_attention_reference(qp, kp, vp).float()
+            fwd0_err = (flash_attention(qp, kp, vp).float() - want_out).abs().max().item()
+            fwd0_scale = want_out.abs().max().item()
+        del want_out
+        torch.cuda.empty_cache()
+        it = dict(iters=3, warmup=1) if pB * Tq * Tk >= 16 * 1998 * 1998 else {}
+        plain_fwd = _time_ms(lambda: flash_attention_reference(qp, kp, vp, *args), **it)
+        plain_fwd0 = _time_ms(lambda: flash_attention_reference(qp, kp, vp), **it)
+        plain_bwd = _time_ms(lambda: flash_attention_bwd_reference(qp, kp, vp, dop, *args), **it)
+        torch.cuda.empty_cache()
+        # the kernels at B
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = flash_attention(qg, kg, vg, *args)
+        bwd = lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
+        identical = all(torch.equal(a, b) for a, b in zip(bwd(), bwd()))
+        kb1, kb2 = _time_ms(bwd), _time_ms(bwd)
+        kf1, kf2 = _time_ms(lambda: flash_attention(q, k, v, *args)), _time_ms(lambda: flash_attention(q, k, v, *args))
+        kf0 = _time_ms(lambda: flash_attention(q, k, v))
+        # the card's time alone: one call captured in a CUDA graph and replayed
+        # (back-to-back wrapper calls are bound by the host's launch work at
+        # the generate shapes)
+        o2, lse2 = flash_attn._launch_fwd(q, k, v, *args, None, True)
+        fwd_graph = _graph_ms(lambda: flash_attn._launch_fwd(q, k, v, *args, None, False))
+        fwd0_graph = _graph_ms(lambda: flash_attn._launch_fwd(q, k, v, None, False, 0.0, 0, None, False))
+        bwd_graph = _graph_ms(lambda: flash_attn.flash_attention_bwd(q, k, v, o2, lse2, do, *args))
+        del out, qg, kg, vg, o2, lse2
+        torch.cuda.empty_cache()
+        ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+        lib_bwd = _time_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True))
+        lib_fwd = _time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        del lib_out, ql, kl, vl
+        # forward: q, k, v read, out written; backward: q, k, v, dO, O read (bf16), lse (f32), dq, dk, dv written
+        fwd_bytes = 2 * (2 * B * H * Tq * Dh + 2 * B * H * Tk * Dh)
+        bwd_bytes = 2 * (3 * B * H * Tq * Dh + 2 * B * H * Tk * Dh) + 4 * B * H * Tq + 2 * (
+            B * H * Tq * Dh + 2 * B * H * Tk * Dh)
+        fwd_bound, fwd_by = _bound(fwd_bytes, 4.0 * B * H * Tq * Tk * Dh, "bfloat16")
+        bwd_bound, bwd_by = _bound(bwd_bytes, 10.0 * B * H * Tq * Tk * Dh, "bfloat16")
+        row.update(fwd_max_abs_err=fwd_err, fwd_scale=out_scale, fwd_tol=BF16_TOL * out_scale,
+                   fwd_rate0_max_abs_err=fwd0_err, fwd_rate0_scale=fwd0_scale,
+                   fwd_rate0_plain_ms_at_plain_B=plain_fwd0,
+                   max_abs_err=err, grad_scale=scale, tol=BF16_TOL * scale, bitwise_deterministic=identical,
+                   fwd_ms=(kf1 + kf2) / 2, fwd_graph_ms=fwd_graph, fwd_rate0_ms=kf0, fwd_rate0_graph_ms=fwd0_graph,
+                   fwd_plain_ms_at_plain_B=plain_fwd,
+                   fwd_library_ms=lib_fwd, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+                   bwd_ms=(kb1 + kb2) / 2, bwd_graph_ms=bwd_graph, bwd_plain_ms_at_plain_B=plain_bwd,
+                   bwd_library_ms=lib_bwd,
+                   bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
+                   dq_scratch_gb=4 * flash_attn.bwd_scratch_floats(B, H, Tq, Tk, Dh, bf16) / 1e9)
+        emit("kernels_bf16", kernel="flash_attn_fwd_bf16+flash_attn_bwd_bf16", **row)
+        ok = (fwd_err <= BF16_TOL * out_scale and fwd0_err <= BF16_TOL * fwd0_scale and err <= BF16_TOL * scale
+              and identical)
+        if rate > 0.0:
+            ok = ok and row["mask_rate05_max_abs_err"] <= row["mask_bar"]
+        if not ok:
+            raise AssertionError(f"the bf16 attention kernels disagree with their plain versions: {row}")
+        if (B, H, Tq, Tk, Dh) == BF16_MAIN_CASE:
+            summary = row
+        del q, k, v, kv, do, qp, kp, vp, dop
+        torch.cuda.empty_cache()
+    return summary
 
 
 def _train_batch(rng, B, T):
@@ -1718,8 +1963,10 @@ def _profile_step(state, sched, dcfg, batch) -> dict:
     return dict(profiled_wall_ms=wall_ms, device_ms=total, device_idle_share=1.0 - total / wall_ms,
                 device_launches=sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                 attn_bwd_ms=group("attn_bwd_"), attn_bwd_share=group("attn_bwd_") / total,
-                attn_fwd_ms=group("attn_fwd_kernel"), attn_fwd_share=group("attn_fwd_kernel") / total,
+                attn_fwd_ms=group("attn_fwd_"), attn_fwd_share=group("attn_fwd_") / total,
+                gemm_ms=sum(v for k, v in per.items() if _is_gemm(k)),
                 int64_elementwise_ms=group("<long"),  # the hash dropout masks' uint32-in-int64 math
+                int64_elementwise_share=group("<long") / total,
                 cudnn_conv_fprop_ms=group("fprop_implicit_gemm"), top_kernels_ms=[[k[:90], v] for k, v in top])
 
 
@@ -1747,7 +1994,10 @@ def _train_run(name: str, root: str, mcfg, datacfg, seed: int, cached: bool) -> 
     state = train(root, save_dir, mcfg, DiffusionConfig(), datacfg, tcfg, cache_audio_features=cached,
                   device="cuda", timings=timings, reader="fastdata")
     train_s = time.perf_counter() - t0
-    fwd, bwd = launch_counts[flash_attn.NAME], launch_counts[flash_attn.BWD_NAME]
+    names = ((flash_attn.BF16_NAME, flash_attn.BF16_BWD_NAME) if mcfg.dtype == "bfloat16"
+             else (flash_attn.NAME, flash_attn.BWD_NAME))
+    fwd, bwd = launch_counts[names[0]], launch_counts[names[1]]
+    others = sum(launch_counts.values()) - fwd - bwd
     logged = [json.loads(l) for l in open(os.path.join(save_dir, "log.jsonl"))]
     steady, waits = timings["step_s"][1:], timings["batch_s"][1:]
     per_step = (mcfg.cond_encoder_layers if mcfg.data_format == "face" else 0) + 2 * mcfg.num_layers
@@ -1758,10 +2008,12 @@ def _train_run(name: str, root: str, mcfg, datacfg, seed: int, cached: bool) -> 
         and os.path.exists(os.path.join(save_dir, checkpoints.MODEL_FILE)),
         "attention_fwd_launches": fwd == per_step * TRAIN_STEPS,
         "attention_bwd_launches": bwd == per_step * TRAIN_STEPS,
+        "no_other_kernel_launches": others == 0,
         "reader_fastdata": timings["reader"] == "fastdata",
     }
     return dict(state=state, save_dir=save_dir, fwd=fwd, bwd=bwd, checks=checks, numbers=dict(
-        cached=cached, reader=timings["reader"], cache_s=timings.get("cache_s"), train_s=train_s,
+        cached=cached, reader=timings["reader"], cache_s=timings.get("cache_s"), cache_mb=timings.get("cache_mb"),
+        train_s=train_s,
         step_s=timings["step_s"], batch_s=timings["batch_s"], steady_step_ms=1e3 * sum(steady) / len(steady),
         steady_steps_per_s=len(steady) / sum(steady), steady_batch_share=sum(waits) / sum(steady),
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, losses=[r["loss"] for r in logged],
@@ -1869,6 +2121,309 @@ def phase_main_path_train_face(seed: int, smi: str, cache, index, stats):
     return run["fwd"], run["bwd"]
 
 
+def phase_bf16_slice_parity(seed: int) -> None:
+    """The full-width pose and face models in bf16 (f32 weights from one
+    seed, ``dtype="bfloat16"``, the frontend in f32 as generate loads it):
+    encode, cached CFG and DDIM-5 from one numpy x_T, run three ways: card
+    bf16 (the bf16 kernels), CPU bf16 and CPU f32 (plain versions).  The
+    card must be no less accurate than the CPU: err(card bf16 vs CPU f32) <=
+    1.5 err(CPU bf16 vs CPU f32) + 1e-3 scale."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.diffusion.respace import maybe_respaced
+    from audio2photoreal_tpu_torch.diffusion.sampling import ddim_sample_loop
+    from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts
+    from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn_cached
+    from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
+
+    sched = maybe_respaced("cosine", 1000, "ddim5")
+    for name, build, guidance in (("pose", _pose_model, 2.0), ("face", _face_model, FACE_GUIDANCE)):
+        cfg, model32 = build(seed)
+        model16 = FiLMDenoiser(dataclasses.replace(cfg, dtype="bfloat16"))
+        model16.load_state_dict(model32.state_dict(), strict=True)
+        model16.eval()
+        rng = np.random.RandomState(seed + 21)
+        B, T = 1, cfg.max_seq_length
+        audio = rng.randn(B, T * 1600, 2).astype(np.float32)
+        kf = rng.randn(B, -(-T // cfg.keyframe_step), cfg.key_feature_dim).astype(np.float32)
+        kv = np.ones(kf.shape[:2], np.float32)
+        x_T = rng.randn(B, T, cfg.nfeats).astype(np.float32)
+
+        def run(model, device):
+            with torch.no_grad():
+                a = torch.from_numpy(audio).to(device)
+                if name == "pose":
+                    cond = model.encode_conditioning(a, torch.from_numpy(kf).to(device), torch.from_numpy(kv).to(device))
+                else:
+                    cond = model.encode_conditioning(a, lip_verts=model.lip_vertices(a))
+                res = ddim_sample_loop(sched, "xstart", cfg_model_fn_cached(model, cond, guidance),
+                                       torch.from_numpy(x_T).to(device))
+            return res.pred_xstart.float().cpu().numpy()
+
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        card = run(copy.deepcopy(model16).cuda(), "cuda")
+        card_s = time.perf_counter() - t0
+        launches = (launch_counts[flash_attn.BF16_NAME], launch_counts[flash_attn.NAME])
+        t0 = time.perf_counter()
+        cpu16 = run(model16, "cpu")
+        cpu32 = run(model32, "cpu")
+        cpu_s = time.perf_counter() - t0
+        scale = float(np.abs(cpu32).max())
+        e_card, e_cpu = float(np.abs(card - cpu32).max()), float(np.abs(cpu16 - cpu32).max())
+        bar = BF16_RATIO * e_cpu + BF16_SLACK * scale
+        want = (cfg.cond_encoder_layers if name == "face" else 0) + cfg.num_layers * 2 * 5
+        row = dict(model=name, steps=5, guidance=guidance, batch=B, latent=cfg.latent_dim, layers=cfg.num_layers,
+                   heads=cfg.num_heads, scale=scale, err_card_bf16_vs_cpu_f32=e_card,
+                   err_cpu_bf16_vs_cpu_f32=e_cpu, err_card_vs_cpu_bf16=float(np.abs(card - cpu16).max()), bar=bar,
+                   bf16_kernel_launches=launches[0], f32_kernel_launches=launches[1], expected_launches=want,
+                   card_s=card_s, cpu_s=cpu_s, finite=bool(np.isfinite(card).all()))
+        emit("bf16_slice_parity", **row)
+        if not (row["finite"] and e_card <= bar and launches == (want, 0)):
+            raise AssertionError(f"the bf16 {name} slice on the card is less accurate than on the CPU: {row}")
+        del model16, model32
+        torch.cuda.empty_cache()
+
+
+def _grad_ratios(grads: dict, cpu16: dict, cpu32: dict) -> dict:
+    """Each gradient tensor's error against the CPU f32 step over the ratio
+    bar (1.5 times the CPU bf16 step's error + 1e-3), on the relative L2
+    error (the gate) and on the largest error (scale: the f32 tensor's
+    largest magnitude); the worst tensor of each."""
+    worst = {"l2": (0.0, ""), "max": (0.0, "")}
+    for n, g32 in cpu32.items():
+        ref, scale = max(g32.norm().item(), 1e-30), g32.abs().max().item()
+        r = {"l2": (grads[n] - g32).norm().item() / ref / (
+                 BF16_RATIO * (cpu16[n] - g32).norm().item() / ref + BF16_SLACK),
+             "max": (grads[n] - g32).abs().max().item() / max(
+                 BF16_RATIO * (cpu16[n] - g32).abs().max().item() + BF16_SLACK * scale, 1e-30)}
+        for k in worst:
+            if r[k] > worst[k][0]:
+                worst[k] = (r[k], n)
+    return worst
+
+
+def _bf16_step_parity(phase: str, cfg32, model32, batch: dict, t, noise, want_launches: int) -> None:
+    """One deterministic train step (fixed t and noise, dropout and guidance
+    dropout off) from the same f32 weights four ways: card bf16 (the bf16
+    kernels), card bf16 with cuBLAS's bf16 reduced-precision reduction off
+    (a witness of what that flag costs; the port leaves it as it finds it),
+    CPU bf16 and CPU f32 (plain versions).  The loss within 1e-2 relative of
+    the CPU's bf16 step; each gradient tensor by the ratio rule on its
+    relative L2 error against the CPU f32 step (the worst tensor's largest
+    error is reported beside it); parameters after AdamW within 2 lr of the
+    CPU's bf16 step; parameters and AdamW state f32."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from audio2photoreal_tpu_torch.core.config import DiffusionConfig, TrainConfig
+    from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
+    from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts
+    from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
+    from audio2photoreal_tpu_torch.train.loops import diffusion_train_step
+    from audio2photoreal_tpu_torch.train.state import TrainState
+
+    cfg16 = dataclasses.replace(cfg32, dtype="bfloat16", frontend_dtype="bfloat16")
+    model16 = FiLMDenoiser(cfg16)
+    model16.load_state_dict(model32.state_dict(), strict=True)
+    dcfg = DiffusionConfig(cond_drop_prob=0.0)
+    matmul = torch.backends.cuda.matmul
+    default_reduction = matmul.allow_bf16_reduced_precision_reduction
+    out = {}
+    for run, (device, model, reduction) in {
+            "card16": ("cuda", copy.deepcopy(model16).cuda(), default_reduction),
+            "card16_f32_reduction": ("cuda", copy.deepcopy(model16).cuda(), False),
+            "cpu16": ("cpu", model16, default_reduction), "cpu32": ("cpu", model32, default_reduction)}.items():
+        state = TrainState(model.eval(), TrainConfig(lr=LR))
+        launch_counts.clear()
+        matmul.allow_bf16_reduced_precision_reduction = reduction
+        t0 = time.perf_counter()
+        try:
+            metrics, _ = diffusion_train_step(
+                state, make_schedule().to_device(device), dcfg,
+                {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                t=torch.from_numpy(t), noise=torch.from_numpy(noise).to(device))
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = default_reduction
+        secs = time.perf_counter() - t0
+        launches = (launch_counts[flash_attn.BF16_NAME], launch_counts[flash_attn.BF16_BWD_NAME],
+                    launch_counts[flash_attn.NAME], launch_counts[flash_attn.BWD_NAME])
+        grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters() if p.grad is not None}
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        f32 = all(p.dtype == torch.float32 for p in model.parameters()) and all(
+            v.dtype == torch.float32 for st in state.optimizer.state.values() for v in st.values()
+            if isinstance(v, torch.Tensor) and v.dim() > 0)
+        out[run] = dict(metrics=metrics, grads=grads, params=params, launches=launches, secs=secs, f32=f32)
+        del state
+    c16, p16, p32 = out["card16"], out["cpu16"], out["cpu32"]
+    loss_rel = abs(c16["metrics"]["loss"] - p16["metrics"]["loss"]) / abs(p16["metrics"]["loss"])
+    names = sorted(p32["grads"])
+    flat = {k: torch.cat([out[k]["grads"][n].flatten() for n in names]) for k in out}
+    ref = flat["cpu32"].norm().item()
+    worst = {k: _grad_ratios(out[k]["grads"], p16["grads"], p32["grads"]) for k in ("card16", "card16_f32_reduction")}
+    d = torch.cat([(c16["params"][n] - p16["params"][n]).abs().flatten() for n in names])
+    row = dict(data_format=cfg32.data_format, batch=len(t), latent=cfg32.latent_dim, layers=cfg32.num_layers,
+               inputs=sorted(batch), t=t.tolist(), loss_card_bf16=c16["metrics"]["loss"],
+               loss_cpu_bf16=p16["metrics"]["loss"], loss_cpu_f32=p32["metrics"]["loss"], loss_rel_err=loss_rel,
+               grads_compared=len(names), cublas_bf16_reduced_precision_reduction=default_reduction,
+               grad_rel_l2_cpu_bf16_vs_cpu_f32=(flat["cpu16"] - flat["cpu32"]).norm().item() / ref,
+               **{f"grad_rel_l2_{k}_vs_cpu_f32": (flat[k] - flat["cpu32"]).norm().item() / ref for k in worst},
+               **{f"worst_tensor_{m}_ratio_{k}": list(worst[k][m]) for k in worst for m in ("l2", "max")},
+               same_grad_names=sorted(c16["grads"]) == names == sorted(p16["grads"]),
+               param_max_abs_diff_card_vs_cpu_bf16=d.max().item(), params_and_adamw_state_f32=c16["f32"],
+               card_launches_bf16_fwd_bwd_f32_fwd_bwd=list(c16["launches"]), expected_launches=want_launches,
+               card_s=c16["secs"], cpu_bf16_s=p16["secs"], cpu_f32_s=p32["secs"])
+    emit(phase, **row)
+    ok = (loss_rel <= 1e-2 and worst["card16"]["l2"][0] <= 1.0 and row["same_grad_names"]
+          and d.max().item() <= 2 * LR and c16["f32"] and c16["launches"] == (want_launches, want_launches, 0, 0)
+          and p16["launches"] == (0, 0, 0, 0))
+    if not ok:
+        raise AssertionError(f"the bf16 train step on the card disagrees with the CPU's: {row}")
+
+
+def phase_train_parity_bf16(seed: int) -> None:
+    """One deterministic full-width bf16 train step at batch 4, card against
+    CPU: pose on raw audio through the bf16 frontend, face on cached
+    features."""
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
+
+    cfg, model = _pose_model(seed, hash_dropout=True)
+    rng = np.random.RandomState(seed + 31)
+    B, T = 4, cfg.max_seq_length
+    batch = _train_batch(rng, B, T)
+    t = np.array([0, 250, 600, 999])
+    noise = rng.randn(B, T, cfg.nfeats).astype(np.float32)
+    _bf16_step_parity("train_parity_bf16", cfg, model, batch, t, noise, 2 * cfg.num_layers)
+
+    cfg, model = _face_model(seed, hash_dropout=True)
+    rng = np.random.RandomState(seed + 32)
+    lengths = np.array([T, T, 450, 333], np.int32)
+    mask = (np.arange(T)[None] < lengths[:, None]).astype(np.float32)
+    batch = {"motion": rng.randn(B, T, cfg.nfeats).astype(np.float32) * mask[..., None], "mask": mask,
+             "lengths": lengths, "audio_features": rng.rand(B, tokens_for_frames(T), 1024).astype(np.float32),
+             "lip_verts": rng.randn(B, T, 1014).astype(np.float32)}
+    noise = rng.randn(B, T, cfg.nfeats).astype(np.float32)
+    _bf16_step_parity("train_parity_bf16", cfg, model, batch, t, noise, cfg.cond_encoder_layers + 2 * cfg.num_layers)
+
+
+def phase_main_path_train_bf16(seed: int, smi: str) -> dict:
+    """``train()`` at the JAX package's training point (BENCH_r05.json
+    ``train_config``: flash attention, hash dropout, the feature cache, bf16
+    compute and a bf16 frontend) for the pose and the face width, batch 64,
+    4 steps (steady = steps 2-4): steps/s, the batch wait, peak memory, the
+    bf16 cache's size and build time, one more step under the profiler for
+    the device time by kernel; each checkpoint sampled (DDIM-10)."""
+    import dataclasses
+
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.apps.generate import find_stats, generate
+    from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig
+    from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
+    from audio2photoreal_tpu_torch.data.loader import FastLoader, SceneIndex
+    from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
+
+    person, root = "SYNTH01", _train_person(seed)
+    point = dict(flash_attention=True, hash_dropout=True, dtype="bfloat16", frontend_dtype="bfloat16")
+    launches = {}
+    for fmt, mcfg in (("pose", DenoiserConfig(data_format="pose", **point)),
+                      ("face", DenoiserConfig(**{**FACE_WIDTH, **point}))):
+        datacfg = DataConfig(person=person, data_format=fmt, batch_size=TRAIN_BATCH,
+                             max_seq_length=mcfg.max_seq_length)
+        run = _train_run(f"train_run_{fmt}_bf16", root, mcfg, datacfg, seed, cached=True)
+        res = np.load(generate(run["save_dir"], root, num_samples=1, timestep_respacing="ddim10", device="cuda",
+                               output_dir=os.path.join(WORK, f"train_samples_{fmt}_bf16")), allow_pickle=True).item()
+        run["checks"]["generate_from_checkpoint"] = (
+            list(res["motions"].shape) == [1, mcfg.nfeats, 1, mcfg.max_seq_length]
+            and bool(np.isfinite(res["motions"]).all()))
+        run["checks"]["params_f32"] = all(p.dtype.is_floating_point and p.element_size() == 4
+                                          for p in run["state"].model.parameters())
+        loader = FastLoader(SceneIndex(root, person), find_stats(os.path.join(root, person)), datacfg,
+                            reader="fastdata")
+        batch = loader.sample_batch(TRAIN_BATCH, np.random.RandomState(seed))
+        del batch["audio"]  # features in place of the audio (their values do not change the work)
+        rng = np.random.RandomState(seed)
+        batch["audio_features"] = rng.rand(TRAIN_BATCH, tokens_for_frames(mcfg.max_seq_length), 1024).astype(
+            np.float32)
+        if fmt == "face":
+            batch["lip_verts"] = rng.randn(TRAIN_BATCH, mcfg.max_seq_length, 1014).astype(np.float32)
+        prof = _profile_step(run["state"], make_schedule().to_device("cuda"), DiffusionConfig(), _device_batch(batch))
+        n = run["numbers"]
+        emit("main_path_train_bf16", nvidia_smi=smi, model=fmt, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+             config=dataclasses.asdict(mcfg), **n,
+             device_idle_share_of_steady_step=1.0 - prof["device_ms"] / n["steady_step_ms"], **prof,
+             checks=run["checks"])
+        if not all(run["checks"].values()):
+            raise AssertionError(f"main path (bf16 train, {fmt}) checks failed: {run['checks']}")
+        launches[f"train_{fmt}_bf16"] = (run["fwd"], run["bwd"])
+        del run["state"]
+    return launches
+
+
+def phase_main_path_generate_bf16(seed: int, smi: str) -> dict:
+    """``generate()`` of bf16 models (configs with ``dtype`` and
+    ``frontend_dtype`` bfloat16, as train() writes them at the JAX package's
+    training point; generate runs the frontend in f32): the face model at
+    DDIM-500, CFG 10.0, and the pose model on the guide's keyframes at
+    DDIM-500, CFG 2.0, 2 clips of 20 s each; the bf16 kernel's launches;
+    5 more DDIM steps of each timed and profiled."""
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.apps.generate import MODEL_FILE, generate
+    from audio2photoreal_tpu_torch.core.config import DataConfig, DiffusionConfig, save_config
+    from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
+    from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts
+
+    person, num_samples, steps = "SYNTH01", 2, 500
+    if not os.path.isdir(os.path.join(WORK, person)):
+        make_synthetic_person(WORK, person, num_scenes=8, frames_per_scene=600, seed=seed)
+    guide_dir, vq_dir = _guide_dirs(seed)
+    launches = {}
+    for fmt, build, guidance in (("face", _face_model, FACE_GUIDANCE), ("pose", _pose_model, 2.0)):
+        cfg, model = build(seed, dtype="bfloat16", frontend_dtype="bfloat16")
+        d = os.path.join(WORK, f"{fmt}_model_bf16")
+        save_config(d, denoiser=cfg, diffusion=DiffusionConfig(),
+                    data=DataConfig(person=person, data_format=fmt, max_seq_length=cfg.max_seq_length))
+        torch.save(model.state_dict(), os.path.join(d, MODEL_FILE))
+        del model
+        kw = dict(guide_path=guide_dir, vq_path=vq_dir) if fmt == "pose" else {}
+        timings: dict = {}
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        path = generate(d, WORK, num_samples=num_samples, guidance_param=guidance, timestep_respacing=f"ddim{steps}",
+                        device="cuda", timings=timings, output_dir=os.path.join(WORK, f"samples_{fmt}_bf16"), **kw)
+        total_s = time.perf_counter() - t0
+        bf16_launches, f32_launches = launch_counts[flash_attn.BF16_NAME], launch_counts[flash_attn.NAME]
+        res = np.load(path, allow_pickle=True).item()
+        prof = _profile_ddim(d, guidance, seed)
+        want = (cfg.cond_encoder_layers if fmt == "face" else 0) + cfg.num_layers * 2 * steps
+        audio_s = num_samples * cfg.max_seq_length / 30.0
+        checks = {
+            "motions_shape": list(res["motions"].shape) == [num_samples, cfg.nfeats, 1, cfg.max_seq_length],
+            "motions_finite": bool(np.isfinite(res["motions"]).all()),
+            "bf16_attention_launches": bf16_launches == want and f32_launches == 0,
+        }
+        emit("main_path_generate_bf16", nvidia_smi=smi, model=fmt, samples=num_samples, ddim_steps=steps,
+             guidance=guidance, dtype=cfg.dtype, frontend_dtype_in_config=cfg.frontend_dtype,
+             keyframes="guide" if fmt == "pose" else None, guide_s=timings["guide_s"], lip_s=timings["lip_s"],
+             encode_s=timings["encode_s"], ddim_s=timings["ddim_s"], ddim_step_ms=1e3 * timings["ddim_s"] / steps,
+             generate_s=total_s, audio_s=audio_s, audio_s_per_wall_s=audio_s / total_s,
+             kernel_launches=bf16_launches, **prof, checks=checks)
+        if not all(checks.values()):
+            raise AssertionError(f"main path (bf16 generate, {fmt}) checks failed: {checks}")
+        launches[f"{'generate' if fmt == 'pose' else 'face'}_bf16"] = bf16_launches
+    return launches
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1887,6 +2442,7 @@ def main() -> None:
     phase_render_parity(args.seed)
     phase_guide_parity(args.seed)
     launches = phase_main_path(args.seed, smi)
+    gen16 = phase_main_path_generate_bf16(args.seed, smi)
     bwd = phase_train_kernels(args.seed)
     phase_train_kernels_face(args.seed)
     phase_train_parity(args.seed)
@@ -1897,6 +2453,14 @@ def main() -> None:
     del cache
     train_fwd = {path: counts[0] for path, counts in train.items()}
     train_bwd = {path: counts[1] for path, counts in train.items()}
+    bf16 = phase_kernels_bf16(args.seed)
+    phase_bf16_slice_parity(args.seed)
+    phase_train_parity_bf16(args.seed)
+    train16 = phase_main_path_train_bf16(args.seed, smi)
+    fwd16 = {**gen16, **{path: counts[0] for path, counts in train16.items()}}
+    bwd16 = {path: counts[1] for path, counts in train16.items()}
+    if min(fwd16.values()) < 1 or min(bwd16.values()) < 1:
+        raise AssertionError(f"a bf16 path launched no bf16 attention kernel: {fwd16}, {bwd16}")
 
     import torch
 
@@ -1923,6 +2487,24 @@ def main() -> None:
              bwd[k] for k in ("B", "H", "Tq", "Tk", "Dh")],
          "arithmetic": "3xTF32 on mma.sync m16n8k8 (f32); bound_ms at 495/3 TFLOP/s",
          **{k: bwd[k] for k in attn_keys}, **tc(bwd)},
+        {"name": flash_attn.BF16_NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_fwd_bf16.cu",
+         "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:124", "launches": sum(fwd16.values()),
+         "launches_by_path": fwd16, "shape": [bf16[k] for k in ("B", "H", "Tq", "Tk", "Dh")],
+         "dropout": "replayed hash mask in the kernel (training); these numbers are at rate 0",
+         "arithmetic": "bf16 wgmma m64nNk16 (f32 accumulate), TMA; bound_ms at 989 TFLOP/s",
+         "max_abs_err": bf16["fwd_rate0_max_abs_err"], "ms": bf16["fwd_rate0_ms"],
+         "graph_ms": bf16["fwd_rate0_graph_ms"], "plain_ms": bf16["fwd_rate0_plain_ms_at_plain_B"],
+         "library_ms": bf16["fwd_library_ms"],
+         "bound_ms": bf16["fwd_bound_ms"], "bound_by": bf16["fwd_bound_by"]},
+        {"name": flash_attn.BF16_BWD_NAME, "route": "cuda",
+         "source": f"{PKG}/kernels/csrc/flash_attn_bwd_bf16.cu",
+         "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:157", "launches": sum(bwd16.values()),
+         "launches_by_path": bwd16, "shape": [bf16[k] for k in ("B", "H", "Tq", "Tk", "Dh")],
+         "dropout": bf16["dropout"], "library_dropout": 0.0,
+         "arithmetic": "bf16 mma.sync m16n8k16 with ldmatrix (f32 accumulate); bound_ms at 989 TFLOP/s",
+         "max_abs_err": bf16["max_abs_err"], "ms": bf16["bwd_ms"], "graph_ms": bf16["bwd_graph_ms"],
+         "plain_ms": bf16["bwd_plain_ms_at_plain_B"], "library_ms": bf16["bwd_library_ms"],
+         "bound_ms": bf16["bwd_bound_ms"], "bound_by": bf16["bwd_bound_by"]},
         {"name": raster.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/raster.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas_raster.py:143", "launches": launches[raster.NAME],
          "shape": [ras[k] for k in ("B", "H", "W", "faces")], "graph_ms": ras["graph_ms"],

@@ -7,7 +7,8 @@ so it also runs where JAX is not installed, without the JAX-side conftest:
 
 Tolerances with TF32 off: attention f32 1e-5 for unit-normal inputs, bf16
 2e-2; attention gradients f32 2e-5 and bf16 2e-2 of the largest plain
-element; the dropout mask exactly; the rasterizer's face ids and coverage
+element; the bf16 kernels at the model's shapes 1e-2 of the largest plain
+output and gradient; the dropout mask exactly; the rasterizer's face ids and coverage
 exactly, depth / UV / barycentrics 1e-5; rendered uint8 frames within one
 count; the display kernel's tex_rec bit for bit and its 8-bit values exact
 on >= 99.99% of the channel texels and never more than one count off; a
@@ -54,9 +55,10 @@ def test_kernel_matches_plain(cuda, dtype, tol, B, H, Tq, Tk, Dh, masked):
     kv_valid = None
     if masked:  # row 0 of the causal mask sees keys 0..126, all valid
         kv_valid = (torch.arange(Tk, device=cuda)[None] < torch.tensor([[150], [Tk]], device=cuda)).float()
-    before = launch_counts[flash_attn.NAME]
+    name = flash_attn.BF16_NAME if dtype == torch.bfloat16 else flash_attn.NAME
+    before = launch_counts[name]
     got = flash_attention(q, k, v, kv_valid, causal=masked)
-    assert launch_counts[flash_attn.NAME] == before + 1
+    assert launch_counts[name] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_reference(q, k, v, kv_valid, causal=masked)
     assert (got.float() - want.float()).abs().max().item() <= tol
@@ -187,9 +189,11 @@ def _kernel_grads(q, k, v, do, kv_valid, causal, rate, seed, block_q=None):
 ])
 def test_backward_kernel_matches_plain(cuda, dtype, B, H, Tq, Tk, Dh, masked, rate, block_q):
     q, k, v, do, kv_valid = _attn_case(cuda, B, H, Tq, Tk, Dh, masked, dtype)
-    before = (launch_counts[flash_attn.NAME], launch_counts[flash_attn.BWD_NAME])
+    names = ((flash_attn.BF16_NAME, flash_attn.BF16_BWD_NAME) if dtype == torch.bfloat16
+             else (flash_attn.NAME, flash_attn.BWD_NAME))
+    before = [launch_counts[n] for n in names]
     out, *grads = _kernel_grads(q, k, v, do, kv_valid, masked, rate, 1234, block_q)
-    assert (launch_counts[flash_attn.NAME], launch_counts[flash_attn.BWD_NAME]) == (before[0] + 1, before[1] + 1)
+    assert [launch_counts[n] for n in names] == [before[0] + 1, before[1] + 1]
     want_out = flash_attention_reference(q, k, v, kv_valid, masked, rate, 1234, block_q)
     want = flash_attention_bwd_reference(q, k, v, do, kv_valid, masked, rate, 1234, block_q)
     assert (out.float() - want_out.float()).abs().max().item() <= TOL[dtype]
@@ -259,6 +263,126 @@ def test_backward_kernel_rejects_what_it_does_not_take(cuda):
         flash_attn.flash_attention_bwd(q, q, q, q, lse.double(), q)
     with pytest.raises(ValueError, match="dropout_rate"):
         flash_attn.flash_attention_bwd(q, q, q, q, lse, q, dropout_rate=1.0)
+
+
+# ------------------------------------- the bf16 kernels at the model shapes -- #
+
+BF16_REL = 1e-2  # of the largest plain output / gradient
+
+
+def _bf16_views(cuda, B, H, Tq, Tk, Dh, seed):
+    """bf16 q, k, v as the model hands them over: q and k the two halves of
+    one fused [B, T, 2*H*Dh] self-attention projection when Tq == Tk (time
+    stride 2*H*Dh), else q from its own projection and k, v slices of one
+    stacked [B, Tk, 2*H*Dh] projection; dO contiguous."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bf16 = torch.bfloat16
+    if Tq == Tk:
+        qk = torch.randn((B, Tq, 2 * H * Dh), generator=g, device=cuda).to(bf16)
+        q, k = _split_heads(qk[..., : H * Dh], H), _split_heads(qk[..., H * Dh:], H)
+        v = _split_heads(torch.randn((B, Tk, H * Dh), generator=g, device=cuda).to(bf16), H)
+    else:
+        q = _split_heads(torch.randn((B, Tq, H * Dh), generator=g, device=cuda).to(bf16), H)
+        kv = torch.randn((B, Tk, 2 * H * Dh), generator=g, device=cuda).to(bf16)
+        k, v = _split_heads(kv[..., : H * Dh], H), _split_heads(kv[..., H * Dh:], H)
+    do = torch.randn((B, H, Tq, Dh), generator=g, device=cuda).to(bf16)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Tq,Tk,Dh,masked,rate", [
+    (4, 4, 600, 2000, 64, False, 0.0), (4, 4, 600, 600, 128, False, 0.0),  # generate
+    (1, 4, 1998, 1998, 128, False, 0.0),  # the face cond-encoder
+    (8, 4, 600, 2000, 64, False, 0.1), (8, 4, 600, 600, 128, False, 0.1),  # train
+    (2, 4, 1998, 1998, 128, False, 0.1),
+    (2, 3, 77, 203, 64, True, 0.3), (2, 3, 77, 203, 128, True, 0.0),  # kv_valid and causal, ragged
+    (3, 2, 130, 517, 128, False, 0.1), (3, 2, 517, 130, 64, False, 0.0),  # ragged Tq and Tk
+])
+def test_bf16_kernels_match_plain_at_the_model_shapes(cuda, B, H, Tq, Tk, Dh, masked, rate):
+    """The bf16 forward (wgmma, TMA) and backward (mma.sync, ldmatrix)
+    through autograd against the plain versions, which round where the TPU
+    kernel rounds; the bf16 kernels launch, the f32 ones do not; a rerun of
+    both is bit-identical."""
+    q, k, v, do = _bf16_views(cuda, B, H, Tq, Tk, Dh, Tq + Tk + Dh)
+    kv_valid = None
+    if masked:
+        kv_valid = (torch.arange(Tk, device=cuda)[None] < torch.tensor([[150], [Tk]], device=cuda)).float()
+    args = (kv_valid, masked, rate, 4321)
+    before = {n: launch_counts[n] for n in (flash_attn.NAME, flash_attn.BWD_NAME, flash_attn.BF16_NAME,
+                                            flash_attn.BF16_BWD_NAME)}
+
+    def run():
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = flash_attention(qg, kg, vg, *args)
+        return (out, *torch.autograd.grad(out, (qg, kg, vg), do))
+
+    first, second = run(), run()
+    assert [launch_counts[n] - c for n, c in before.items()] == [0, 0, 2, 2]
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    want_out = flash_attention_reference(q, k, v, *args)
+    want = flash_attention_bwd_reference(q, k, v, do, *args)
+    scale = want_out.float().abs().max().item()
+    assert first[0].dtype == torch.bfloat16 and (first[0].float() - want_out.float()).abs().max().item() <= (
+        BF16_REL * scale)
+    gscale = max(w.float().abs().max().item() for w in want)
+    for name, a, w in zip(("dq", "dk", "dv"), first[1:], want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+        assert (a.float() - w.float()).abs().max().item() <= BF16_REL * gscale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Tq,Tk,Dh,block_q", [(4, 600, 2000, 64, None), (2, 1998, 1998, 128, None),
+                                                (2, 77, 203, 128, 16)])
+def test_bf16_dropout_mask_is_exact(cuda, B, Tq, Tk, Dh, block_q):
+    """At rate 0.5 with q = 0 every probability is 1/Tk and v_j the one-hot
+    of column j mod Dh, so output (i, c) is 2/Tk times the kept keys of class
+    c: a count that bf16 holds far inside one key's share 2/Tk, which one
+    wrong mask element would move it by."""
+    H, rate, seed = 2, 0.5, 2**31 - 9
+    q = torch.zeros((B, H, Tq, Dh), dtype=torch.bfloat16, device=cuda)
+    onehot = torch.nn.functional.one_hot(torch.arange(Tk, device=cuda) % Dh, Dh).to(torch.bfloat16)
+    v = onehot.expand(B, H, Tk, Dh).contiguous()
+    got = flash_attention(q, q[:, :, :1].expand(B, H, Tk, Dh).contiguous(), v, None, False, rate, seed, block_q)
+    mask = flash_attn.dropout_mask(B, H, Tq, Tk, rate, seed, block_q, cuda)
+    want = torch.matmul(mask, onehot.float()) / Tk
+    assert (got.float() - want).abs().max().item() <= 0.4 * 2.0 / Tk
+
+
+@pytest.mark.cuda
+def test_bf16_denoiser_step_on_the_card(cuda):
+    """A full-width bf16 pose denoiser (f32 weights) on the card: one
+    denoise step through the bf16 kernels no less accurate than the CPU's
+    bf16 step against the CPU's f32 one (1.5x its error + 1e-3 of scale),
+    and a backward pass whose gradients reach the f32 parameters."""
+    import copy
+    import dataclasses
+
+    cfg = DenoiserConfig(flash_attention=True)
+    f32 = FiLMDenoiser(cfg).eval()
+    f32.reset_parameters(torch.Generator().manual_seed(0))
+    cpu16 = FiLMDenoiser(dataclasses.replace(cfg, dtype="bfloat16")).eval()
+    cpu16.load_state_dict(f32.state_dict())
+    card16 = copy.deepcopy(cpu16).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    B, D = 2, cfg.latent_dim
+    cond = CondTokens(torch.randn(B, 1998, D, generator=g), torch.randn(B, 20, D, generator=g))
+    x = torch.randn(B, cfg.max_seq_length, cfg.nfeats, generator=g)
+    t, keep = torch.tensor([999, 10]), torch.tensor([True, False])
+    before = launch_counts[flash_attn.BF16_NAME]
+    with torch.no_grad():
+        card = card16.denoise(x.to(cuda), t.to(cuda), CondTokens(*(c.to(cuda) for c in cond)), keep.to(cuda)).cpu()
+        want16 = cpu16.denoise(x, t, cond, keep)
+        want32 = f32.denoise(x, t, cond, keep)
+    assert launch_counts[flash_attn.BF16_NAME] - before == 2 * cfg.num_layers
+    scale = want32.abs().max().item()
+    e_card, e_cpu = (card - want32).abs().max().item(), (want16 - want32).abs().max().item()
+    assert card.dtype == torch.float32 and e_card <= 1.5 * e_cpu + 1e-3 * scale, (e_card, e_cpu, scale)
+    card16.train()
+    card16.denoise(x.to(cuda), t.to(cuda), CondTokens(*(c.to(cuda) for c in cond)), keep.to(cuda)).square().mean().backward()
+    # (the keyframe projection and the frozen frontend take no part in a denoise step)
+    grads = {n: p.grad for n, p in card16.named_parameters() if p.grad is not None}
+    assert all(f"seqTransDecoder.stack.{i}.linear1.weight" in grads for i in range(cfg.num_layers))
+    assert all(gr.dtype == torch.float32 and torch.isfinite(gr).all() for gr in grads.values())
 
 
 # ------------------------------------------------------------- raster -- #

@@ -12,6 +12,8 @@ depth 2) go to both sides through ``convert.guide_state_dict_from_jax`` /
 equal, the keyframes within 2e-5 of their scale, the motions within 1e-4.
 """
 
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -221,10 +223,23 @@ def test_generate_refuses_what_is_not_ported(slice_setup, guide_dirs, tmp_path):
     for kw in (dict(), dict(renderer_path="r"), dict(face_codes="f")):
         with pytest.raises(ValueError, match="--plot needs"):
             generate.generate(s["p_dir"], s["root"], device="cpu", plot=True, **kw)
-    # a guide needs its VQ, and a bf16 frontend is not ported
+    # a guide needs its VQ (a bf16 frontend is ported: test_generate_with_a_bf16_guide_frontend)
     with pytest.raises(ValueError, match="--resume_vq"):
         generate.generate(s["p_dir"], s["root"], device="cpu", guide_path=guide_dirs["p_guide"])
+
+
+def test_generate_with_a_bf16_guide_frontend(slice_setup, guide_dirs, tmp_path):
+    """A guide whose config runs its frozen frontend in bf16 keyframes the
+    pose model, as the JAX GuideKeyframer follows the guide's config; the
+    guide itself computes in f32."""
+    s = slice_setup
     bf16 = str(tmp_path / "bf16_guide")
     j_config.save_config(bf16, guide=j_config.GuideConfig(frontend_dtype="bfloat16", **GUIDE))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        generate.generate(s["p_dir"], s["root"], device="cpu", guide_path=bf16, vq_path=guide_dirs["p_vq"])
+    shutil.copy(f"{guide_dirs['p_guide']}/{generate.MODEL_FILE}", f"{bf16}/{generate.MODEL_FILE}")
+    keyframer = generate.GuideKeyframer(bf16, guide_dirs["p_vq"], "cpu")
+    assert keyframer.guide.audio_model.feature_extractor.dtype == torch.bfloat16
+    assert all(layer.dtype == torch.float32 for layer in keyframer.guide.layers)
+    res = np.load(generate.generate(s["p_dir"], s["root"], device="cpu", guide_path=bf16, vq_path=guide_dirs["p_vq"],
+                                    num_samples=1, timestep_respacing="ddim2", output_dir=str(tmp_path / "out")),
+                  allow_pickle=True).item()
+    assert np.isfinite(res["motions"]).all() and np.isfinite(res["keyframes"]).all()

@@ -370,7 +370,14 @@ def test_guide_state_dict_round_trips_through_convert_guide(guide_setup):
 
 
 def test_guide_runs_in_f32_and_refuses_a_bf16_frontend():
+    """The guide computes in f32 whatever ``dtype`` says, as the JAX guide
+    does; its frozen frontend follows ``frontend_dtype`` (bf16 is ported, a
+    dtype outside the policy is refused)."""
     assert GuideConfig().dtype == "bfloat16"  # never read by the JAX guide either: it computes in f32
-    guide.GuideTransformer(GuideConfig(**GUIDE))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        guide.GuideTransformer(GuideConfig(frontend_dtype="bfloat16", **GUIDE))
+    g = guide.GuideTransformer(GuideConfig(**GUIDE))
+    assert g.audio_model.feature_extractor.dtype == torch.float32
+    g = guide.GuideTransformer(GuideConfig(frontend_dtype="bfloat16", **GUIDE))
+    assert g.audio_model.feature_extractor.dtype == torch.bfloat16
+    assert all(layer.dtype == torch.float32 for layer in g.layers)
+    with pytest.raises(ValueError, match="float16"):
+        guide.GuideTransformer(GuideConfig(frontend_dtype="float16", **GUIDE))

@@ -247,13 +247,20 @@ def test_denoise_matches_jax(denoisers, keep):
 
 def test_face_branch_and_bf16_raise():
     """The face denoiser builds (lip regressor and rotary cond-encoder,
-    frozen lip model, no pose-only modules); bf16 still raises."""
+    frozen lip model, no pose-only modules); a bf16 config builds with f32
+    parameters and bf16 compute (tests/test_torch_bf16.py holds it to JAX),
+    and a dtype outside the policy raises."""
     face = FiLMDenoiser(DenoiserConfig(**{**CFG, "data_format": "face", "nfeats": 256}))
     assert face.cond_projection.in_features == 1024 + 1014 and len(face.cond_encoder) == 2
     assert not any(p.requires_grad for p in face.lip_model.parameters())
     assert not any(n.startswith(("null_pose_embed", "post_pose_layers", "frame_")) for n in face.state_dict())
-    with pytest.raises(NotImplementedError, match="bf16"):
-        FiLMDenoiser(DenoiserConfig(**{**CFG, "dtype": "bfloat16"}))
+    bf16 = FiLMDenoiser(DenoiserConfig(**{**CFG, "dtype": "bfloat16", "frontend_dtype": "bfloat16"}))
+    assert bf16.dtype == bf16.layers[0].dtype == torch.bfloat16
+    assert bf16.audio_model.feature_extractor.dtype == torch.bfloat16
+    assert {p.dtype for p in bf16.parameters()} == {torch.float32}
+    for bad in (dict(dtype="float16"), dict(frontend_dtype="float16")):
+        with pytest.raises(ValueError, match="float16"):
+            FiLMDenoiser(DenoiserConfig(**{**CFG, **bad}))
 
 
 def test_reset_parameters_is_seeded():
