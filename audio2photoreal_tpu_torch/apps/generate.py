@@ -278,27 +278,32 @@ def _render_pred(
 ) -> None:
     """Photoreal-render the generated motion (reference sample/generate.py:
     155-207): pair each pose sample with its face-codes sample, check that
-    both were made from the same audio, and write the per-sample video(s)."""
+    both were made from the same audio, and write the per-sample video(s).
+    The motions hold one row per (repetition, sample), repetition-major;
+    ``lengths``, ``audio`` and ``gt`` one row per sample, in both files.
+    (The JAX package reads all of them by the motion's row, which raises
+    past one repetition, apps/generate.py:249; the reference renders every
+    repetition.)"""
     from audio2photoreal_tpu_torch.apps.render_pipeline import load_body_renderer
 
     face_res = np.load(face_codes_path, allow_pickle=True).item()
     face_motions, face_gts, face_audio = face_res["motions"], face_res.get("gt"), face_res["audio"]
     renderer = load_body_renderer(renderer_path, device=device)
     for sample_i in range(num_samples):
+        length = int(results["lengths"][sample_i])
+        # face and pose runs must be conditioned on the same audio (:187-189)
+        if not np.array_equal(results["audio"][sample_i], face_audio[sample_i]):
+            raise ValueError(f"sample {sample_i}: the face codes were made from other audio")
         for rep_i in range(num_repetitions):
             idx = rep_i * num_samples + sample_i
-            length = int(results["lengths"][idx])
-            # face and pose runs must be conditioned on the same audio (:187-189)
-            if not np.array_equal(results["audio"][idx], face_audio[idx]):
-                raise ValueError(f"sample {idx}: the face codes were made from other audio")
             block = {
-                "audio": results["audio"][idx][: length * audio_per_frame],
+                "audio": results["audio"][sample_i][: length * audio_per_frame],
                 "body_motion": results["motions"][idx].transpose(2, 0, 1)[:length].squeeze(-1),
                 "face_motion": face_motions[idx].transpose(2, 0, 1)[:length].squeeze(-1),
             }
             if render_gt:
-                block["gt_body"] = results["gt"][idx].transpose(2, 0, 1)[:length].squeeze(-1)
-                block["gt_face"] = face_gts[idx].transpose(2, 0, 1)[:length].squeeze(-1)
+                block["gt_body"] = results["gt"][sample_i].transpose(2, 0, 1)[:length].squeeze(-1)
+                block["gt_face"] = face_gts[sample_i].transpose(2, 0, 1)[:length].squeeze(-1)
             save_base = os.path.join(out_dir, f"sample{sample_i:02d}_rep{rep_i:02d}")
             renderer.render_full_video(block, save_base, render_gt=False)
             if render_gt:

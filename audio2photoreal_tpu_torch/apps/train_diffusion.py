@@ -93,7 +93,7 @@ def train(
         raise ValueError(f"unknown schedule_sampler {tcfg.schedule_sampler!r}")
 
     ckpt_dir = os.path.join(save_dir, CKPT_DIR)
-    last = checkpoints.try_resume(ckpt_dir, state)
+    last, _ = checkpoints.try_resume(ckpt_dir, state)
     if last is not None:
         print(f"resumed from step {last}", flush=True)
 

@@ -213,7 +213,9 @@ def vqvae_state_dict_from_jax(params: Mapping[str, Any], vq) -> StateDict:
     """TemporalVertexCodec params and a ``VQState`` (or a mapping with its
     ``embed``, ``embed_avg``, ``cluster_size``) -> state_dict under the
     names ``convert_vqvae`` reads: convs at ``encoder.enc.{2i}`` /
-    ``decoder.dec.{2i}``, codebooks at ``quantizer.layers.{d}._codebook``."""
+    ``decoder.dec.{2i}``, codebooks at ``quantizer.layers.{d}._codebook``,
+    each with the state's ``inited`` flag when it has one (without, the
+    codebooks load as inited)."""
     p = params["params"] if "params" in params else params
     vq = vq._asdict() if hasattr(vq, "_asdict") else vq
     sd: StateDict = {}
@@ -225,6 +227,9 @@ def vqvae_state_dict_from_jax(params: Mapping[str, Any], vq) -> StateDict:
     for name in ("embed", "embed_avg", "cluster_size"):
         for d, book in enumerate(np.asarray(vq[name])):
             sd[f"quantizer.layers.{d}._codebook.{name}"] = _a(book)
+    if "inited" in vq:
+        for d in range(len(np.asarray(vq["embed"]))):
+            sd[f"quantizer.layers.{d}._codebook.inited"] = _a([float(bool(np.asarray(vq["inited"])))])
     return sd
 
 

@@ -101,13 +101,14 @@ class FastLoader:
     says which one runs."""
 
     def __init__(self, index: SceneIndex, stats: DataStats, cfg: DataConfig, feature_cache=None,
-                 reader: str = "auto"):
+                 reader: str = "auto", audio: bool = True):
         if cfg.data_format not in ("pose", "face"):
             raise ValueError(f"data_format must be pose or face; got {cfg.data_format!r}")
         if reader not in READERS:
             raise ValueError(f"reader must be one of {READERS}; got {reader!r}")
         self.index, self.stats, self.cfg = index, stats, cfg
         self.feature_cache = feature_cache
+        self.audio = audio and feature_cache is None  # raw audio in each batch (the VQ trainer reads none)
         self.fastdata = None
         if reader != "numpy":
             try:
@@ -166,9 +167,9 @@ class FastLoader:
             "lengths": np.zeros((batch_size,), np.int32),
         }
         Ta = None
-        if cache is None:
+        if self.audio:
             out["audio"] = np.zeros((batch_size, Tmax * apf, 2), np.float32)
-        else:
+        elif cache is not None:
             Ta = tokens_for_frames(Tmax)
             out["audio_features"] = np.empty((batch_size, Ta, cache.dim), np.float32)
             if face:
@@ -189,7 +190,7 @@ class FastLoader:
                     start = int(rng.randint(0, max(frames - L, 0) + 1))
             if cache is not None:
                 start, L = quantize_window(start, L, frames, cfg.min_seq_length)
-            motion, audio, kf = self._read_window(base, start, L, with_audio=cache is None)
+            motion, audio, kf = self._read_window(base, start, L, with_audio=self.audio)
             miss_w = missing[start : start + L]
             if face:  # codes zeroed at missing frames, and the mask with them
                 motion = np.where(miss_w[:, None], 0.0, motion)
@@ -198,9 +199,9 @@ class FastLoader:
                 out["mask"][b, :L] = 1.0
             out["motion"][b, :L] = motion
             out["lengths"][b] = L
-            if cache is None:
+            if self.audio:
                 out["audio"][b, : L * apf] = audio
-            else:
+            elif cache is not None:
                 out["audio_features"][b] = cache.window(si, start, L, Ta)
                 if face:
                     out["lip_verts"][b] = cache.lip_window(si, start, L, Tmax)
@@ -271,15 +272,18 @@ def make_train_iterator(
     feature_cache=None,
     reader: str = "auto",
     transform: Optional[Callable[[Dict[str, np.ndarray]], Dict]] = None,
+    audio: bool = True,
 ):
     """(prefetched batches of steps ``start_step`` .. ``num_steps`` - 1 (no
     end when None), the ``FastLoader``) over the train split's
     ``SceneIndex``, which raises when the person has no train scenes; a
-    ``feature_cache`` must be built over that same index.  Batch i is drawn
-    from ``RandomState(step_seed(seed, i))`` and passed through
-    ``transform`` (for example a copy into pinned memory) in the worker."""
+    ``feature_cache`` must be built over that same index; without one and
+    with ``audio=False`` a batch carries no audio (and its draws are those
+    of the batch with audio).  Batch i is drawn from
+    ``RandomState(step_seed(seed, i))`` and passed through ``transform``
+    (for example a copy into pinned memory) in the worker."""
     index = SceneIndex(data_root, cfg.person, "train", cfg.num_val_seqs, cfg.num_test_seqs)
-    loader = FastLoader(index, stats, cfg, feature_cache=feature_cache, reader=reader)
+    loader = FastLoader(index, stats, cfg, feature_cache=feature_cache, reader=reader, audio=audio)
 
     def batches():
         i = start_step

@@ -201,13 +201,15 @@ class GuideTransformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor, audio: Optional[torch.Tensor], cond_drop_prob: float = 0.0,
                 generator: Optional[torch.Generator] = None,
-                audio_features: Optional[torch.Tensor] = None) -> torch.Tensor:
+                audio_features: Optional[torch.Tensor] = None,
+                keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Teacher-forced training forward -> [B, L, tokens] logits; each
         clip's conditioning is dropped with ``cond_drop_prob`` (a draw from
-        ``generator``, a CPU generator).  ``audio_features`` as in
+        ``generator``, a CPU generator), or where ``keep_mask`` [B] is False
+        when one is given (tests).  ``audio_features`` as in
         ``encode_conditioning``."""
-        keep = None
-        if cond_drop_prob > 0.0:
+        keep = keep_mask
+        if keep is None and cond_drop_prob > 0.0:
             keep = (torch.rand((tokens.shape[0],), generator=generator) >= cond_drop_prob).to(tokens.device)
         cond = self.encode_conditioning(audio, keep, generator, audio_features)
         return self.decode_logits(tokens, cond, generator)

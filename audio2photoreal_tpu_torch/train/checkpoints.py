@@ -17,7 +17,7 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -48,26 +48,30 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return s[-1] if s else None
 
 
-def save_train_state(ckpt_dir: str, step: int, state: TrainState, max_to_keep: int = 3) -> str:
+def save_train_state(ckpt_dir: str, step: int, state: TrainState, max_to_keep: int = 3,
+                     extra: Optional[Dict[str, Any]] = None) -> str:
     """Write ``{step, model, optimizer, scheduler, ema}`` as step ``step``
-    and drop all but the newest ``max_to_keep``."""
+    and drop all but the newest ``max_to_keep``.  ``extra`` rides along: a
+    trainer's own state that the model's buffers do not hold (the VQ
+    trainer's best validation loss)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, step)
-    _atomic_save(state.state_dict(), path)
+    _atomic_save({**state.state_dict(), "extra": dict(extra or {})}, path)
     for old in steps(ckpt_dir)[:-max_to_keep]:
         os.remove(checkpoint_path(ckpt_dir, old))
     return path
 
 
-def try_resume(ckpt_dir: str, state: TrainState) -> Optional[int]:
-    """Load the latest checkpoint into ``state``; its step, or None when
-    there is none."""
+def try_resume(ckpt_dir: str, state: TrainState) -> Tuple[Optional[int], Dict[str, Any]]:
+    """Load the latest checkpoint into ``state`` -> (its step, its
+    ``extra``), or (None, {}) when there is none."""
     last = latest_step(ckpt_dir)
     if last is None:
-        return None
+        return None, {}
     device = next(state.model.parameters()).device
-    state.load_state_dict(torch.load(checkpoint_path(ckpt_dir, last), map_location=device, weights_only=True))
-    return last
+    sd = torch.load(checkpoint_path(ckpt_dir, last), map_location=device, weights_only=True)
+    state.load_state_dict(sd)
+    return last, sd.get("extra", {})
 
 
 def save_model(save_dir: str, model: torch.nn.Module) -> str:

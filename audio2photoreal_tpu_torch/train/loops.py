@@ -1,18 +1,25 @@
-"""The diffusion denoiser's train step.
+"""The train steps of the diffusion denoiser, the VQ codec and the guide LM.
 
-Counterpart of ``audio2photoreal_tpu/train/loops.py:make_diffusion_train_step``
-(reference: training_loop.py:174-215 + gaussian_diffusion.py:1195-1271):
-sample t and noise, diffuse, run the training forward (pose or face, on raw
-audio or on the feature cache's ``audio_features`` / ``lip_verts``), masked
-L2 (+ velocity, masked by the batch's lengths, + the vb diagnostic),
-backward, and one optimizer update unless the loss or the gradient norm is
-not finite, in which case the update is skipped (the role of the
-reference's fp16 NaN backoff).
+Counterpart of ``audio2photoreal_tpu/train/loops.py``.  The diffusion step
+(``make_diffusion_train_step``; reference: training_loop.py:174-215 +
+gaussian_diffusion.py:1195-1271): sample t and noise, diffuse, run the
+training forward (pose or face, on raw audio or on the feature cache's
+``audio_features`` / ``lip_verts``), masked L2 (+ velocity, masked by the
+batch's lengths, + the vb diagnostic), backward, and one optimizer update
+unless the loss or the gradient norm is not finite, in which case the
+update is skipped (the role of the reference's fp16 NaN backoff).  The VQ
+step (``make_vq_train_step``; train_vq.py:127-155): SmoothL1 reconstruction
+of the 1 fps keyframes + commitment + velocity, the codebooks updated in
+the forward.  The guide step (``make_guide_train_step``;
+train_guide.py:71-107): keyframes tokenised by the frozen codec, shifted
+right behind the start token, label-smoothed cross-entropy over the valid
+keyframes' tokens.  The VQ and guide steps update always, as the JAX
+package's do.
 
-Every random draw of a step comes from two generators the caller seeds for
-that step: a CPU one (t, the guidance-dropout draws, one seed per dropout
-site) and one on the model's device (the noise).  The step reads its metrics
-back to the host once, which is also where it learns whether to update.
+Every random draw of a step comes from generators the caller seeds for that
+step: a CPU one (t, the guidance-dropout draws, one seed per dropout site)
+and one on the model's device (the diffusion noise; the VQ's k-means and
+dead-code rows).  Each step reads its metrics back to the host once.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ from audio2photoreal_tpu_torch.diffusion.schedules import Schedule
 from audio2photoreal_tpu_torch.train.state import TrainState, global_norm
 
 QUARTILES = 4
+LABEL_SMOOTHING = 0.1  # train_guide.py:50-52
+GUIDE_COND_DROP = 0.2  # the JAX guide step's default
 
 
 def validity_mask(batch: Dict[str, torch.Tensor], T: int) -> Optional[torch.Tensor]:
@@ -105,3 +114,72 @@ def diffusion_train_step(
     if ts_state is not None:
         ts_state = tsample.loss_second_moment_update(ts_state, t.cpu(), per)
     return metrics, ts_state
+
+
+def _update(state: TrainState, loss: torch.Tensor, extra: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Backward, the gradients' global norm, one read-back of the metrics,
+    one optimizer update -> the metrics."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    with torch.no_grad():
+        names = ["loss", *extra, "grad_norm"]
+        values = torch.stack([loss.detach(), *(v.detach() for v in extra.values()), global_norm(state.grads())])
+        metrics = dict(zip(names, values.float().cpu().tolist()))  # the step's one read-back
+    state.apply_gradients(metrics["grad_norm"])
+    return metrics
+
+
+def huber(a: torch.Tensor, b: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """SmoothL1, the mean over every element (train_vq.py's loss)."""
+    d = (a - b).abs()
+    return torch.where(d < delta, 0.5 * d**2 / delta, d - 0.5 * delta).mean()
+
+
+def vq_train_step(state: TrainState, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+                  commit_weight: float = 0.02, lambda_vel: float = 1.0) -> Dict[str, float]:
+    """One codec step on ``batch["keyframes"]`` [B, K, nfeats] -> metrics
+    (loss, recon, commit, perplexity, grad_norm).  The codebooks' k-means
+    init, expiry and EMA happen in the forward, their draws from
+    ``generator`` (on the model's device)."""
+    motion = batch["keyframes"]
+    out = state.model(motion, train=True, generator=generator)
+    recon = huber(out.recon, motion)
+    vel = huber(out.recon[:, 1:] - out.recon[:, :-1], motion[:, 1:] - motion[:, :-1])
+    loss = recon + commit_weight * out.commit_loss + lambda_vel * vel
+    return _update(state, loss, {"recon": recon, "commit": out.commit_loss, "perplexity": out.perplexity})
+
+
+def guide_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor,
+               label_smoothing: float = LABEL_SMOOTHING) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (label-smoothed cross-entropy, token accuracy), each summed over
+    the valid tokens and divided by their count (at least 1).  logits [B,
+    L, V], targets [B, L], valid [B, L]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    # label smoothing (train_guide.py:50-52): (1 - eps) CE + eps uniform-CE
+    ce = (1.0 - label_smoothing) * nll - label_smoothing * logp.mean(dim=-1)
+    count = torch.clamp(valid.sum(), min=1.0)
+    acc = ((logits.argmax(-1) == targets).to(valid.dtype) * valid).sum() / count
+    return (ce * valid).sum() / count, acc
+
+
+def guide_train_step(state: TrainState, codec, batch: Dict[str, torch.Tensor],
+                     generator: Optional[torch.Generator] = None, cond_drop_prob: float = GUIDE_COND_DROP,
+                     *, keep_mask: Optional[torch.Tensor] = None) -> Dict[str, float]:
+    """One guide-LM step -> metrics (loss, acc, grad_norm).  ``codec`` is
+    the frozen VQ (eval mode) that tokenises ``batch["keyframes"]``; the
+    conditioning is raw ``audio`` or cached ``audio_features``; ``generator``
+    (CPU) draws the conditioning dropout, unless ``keep_mask`` is given, and
+    the dropout sites' seeds."""
+    model = state.model
+    keyframes = batch["keyframes"]
+    B, depth = keyframes.shape[0], codec.cfg.depth
+    with torch.no_grad():
+        targets = codec.encode(keyframes).reshape(B, -1)  # flatten time-major (train_guide.py:84-88)
+    start = torch.full((B, 1), model.start_token, dtype=targets.dtype, device=targets.device)
+    inputs = torch.cat([start, targets[:, :-1]], dim=1)
+    valid = batch["keyframe_valid"].repeat_interleave(depth, dim=-1)  # [B, K * depth]
+    logits = model(inputs, batch.get("audio"), cond_drop_prob, generator,
+                   audio_features=batch.get("audio_features"), keep_mask=keep_mask)
+    loss, acc = guide_loss(logits, targets, valid)
+    return _update(state, loss, {"acc": acc})

@@ -33,8 +33,14 @@ def lr_factor(cfg: TrainConfig, step: int) -> float:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+    """sqrt of the sum of squares of every element (optax.global_norm).  On
+    the card ``_foreach_norm`` reduces by trees; the CPU's norm kernel sums
+    in f32 lanes, 1e-4 off at a few million elements, so there each
+    tensor's squares go through ``sum``'s cascade."""
+    tensors = list(tensors)
+    if tensors[0].device.type == "cpu":
+        return torch.stack([(t * t).sum() for t in tensors]).sum().sqrt()
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
 class TrainState:

@@ -159,16 +159,45 @@ exception and a nonzero exit.
    err(CPU bf16 vs CPU f32) + 1e-3 scale.
 19. bf16 train parity: one full-width step at batch 4, pose on raw audio
    through the bf16 frontend and face on cached features, card bf16 against
-   CPU bf16 and CPU f32: loss 1e-2 relative, each gradient tensor by the
-   ratio bar on its relative L2 error, params after AdamW within 2 lr,
-   parameters and AdamW state f32; the card's step once more with cuBLAS's
-   bf16 reduced-precision reduction off, as a witness of that flag.
+   CPU bf16 and CPU f32, at weight seeds ``--seed`` .. ``--seed`` + 2: loss
+   1e-2 relative, each gradient tensor by the ratio bar on its relative L2
+   error, params after AdamW within 2 lr, except an element whose bf16
+   gradient took the other sign on the card, which may land 2 lr plus one
+   ulp of the parameter away when |g| of the CPU's f32 step there lies
+   below the largest error the ratio rule admits in its tensor (each such
+   element printed); parameters and AdamW state f32; the card's step once
+   more with cuBLAS's bf16 reduced-precision reduction off, as a witness of
+   that flag.
 20. main path, bf16 training: ``train()`` at the JAX package's training point
    (BENCH_r05.json ``train_config``: bf16 compute and frontend, the feature
    cache, flash attention, hash dropout) for the pose and the face width,
    batch 64, 4 steps; steps/s, the batch wait, peak memory, the bf16
    cache's size and build, device ms by kernel (attention, GEMMs, the int64
    masks) from one profiled step; each checkpoint sampled.
+21. VQ train parity: one step of the codec at ``VQConfig()`` (width 64,
+   1024 codes, depth 4), batch 32 x 20 keyframes, k-means (10 iterations)
+   firing in it, card against CPU with the same rows drawn: loss 1e-5
+   relative, codes equal or each differing one a near-tie of its two best
+   distances (counted), codebooks 1e-5 of their scale, gradients 1e-4 of
+   their largest element.
+22. guide train parity: one guide step at ``GuideConfig()`` (latent 512, 6
+   layers), batch 32 x 240 frames (798 audio tokens, 32 tokens a clip), raw
+   audio and cached features, card against CPU, dropout off and the
+   conditioning dropout injected: the f32 train-parity bars, the audio
+   pre-net's gradients by relative L2.
+23. main path, VQ and guide training: ``train_vq`` at the JAX CLI's point
+   (batch 32) for 4 steps with evaluate and ``ckpt_best`` at the last, then
+   ``train_guide`` on that VQ (batch 32, 240 frames) raw and cached, 4
+   steps each; steps/s, device ms, idle and launches of a profiled step;
+   then ``generate`` of phase 8's pose model from the trained guide and VQ
+   (2 clips, DDIM-50): the keyframes are the trained VQ's decode of the
+   sampled tokens.
+24. checkpoint conversion: a reference-layout tree written from random
+   full-width modules (pose denoiser, guide, VQ; ``args.json``, ``"net"``,
+   ``"model_state_dict"``, 1998 null rows, reference-only keys), converted
+   by ``convert_person``; ``generate`` from the converted dirs equals
+   ``generate`` from the source modules' dirs bit for bit (2 clips,
+   DDIM-50, same seed).
 
 Then one line with every kernel's numbers (the f32 attention rows' bound
 there is the 3xTF32 one, the arithmetic they do; the bf16 rows at the pose
@@ -991,9 +1020,10 @@ def _display_compare(args) -> dict:
 
 
 def _guide_models(seed: int):
-    """The guide LM at ``GuideConfig()`` and the VQ codec at ``VQConfig()``,
-    random weights from ``seed`` (the codebooks he-uniform, as the JAX
-    package's ``VQState.create`` draws them without k-means), eval mode."""
+    """The guide LM at ``GuideConfig()`` and the VQ codec at ``VQConfig()``'s
+    widths, random weights from ``seed`` (the codebooks he-uniform, as the
+    JAX package's ``VQState.create`` draws them with ``kmeans_init=False``),
+    eval mode."""
     import torch
 
     from audio2photoreal_tpu_torch.core.config import GuideConfig, VQConfig
@@ -1002,7 +1032,7 @@ def _guide_models(seed: int):
 
     guide = GuideTransformer(GuideConfig())
     guide.reset_parameters(torch.Generator().manual_seed(seed))
-    codec = TemporalVertexCodec(VQConfig())
+    codec = TemporalVertexCodec(VQConfig(kmeans_init=False))
     codec.reset_parameters(torch.Generator().manual_seed(seed + 1))
     return guide.eval(), codec.eval()
 
@@ -2207,7 +2237,41 @@ def _grad_ratios(grads: dict, cpu16: dict, cpu32: dict) -> dict:
     return worst
 
 
-def _bf16_step_parity(phase: str, cfg32, model32, batch: dict, t, noise, want_launches: int) -> None:
+def _adamw_sign_flips(card: dict, cpu16: dict, cpu32: dict, names) -> list:
+    """The parameters that moved more than 2 lr apart, card bf16 against CPU
+    bf16, after one AdamW step from zero state.  That step moves a parameter
+    by lr g / (|g| + eps), so where the two bf16 gradients differ in sign the
+    two land 2 lr apart, plus the f32 rounding of p - lr and p + lr: at most
+    one ulp of the larger parameter.  For each: whether the signs differ,
+    |g| of the CPU f32 step there, and the largest error the ratio rule
+    admits in its tensor (BF16_RATIO times the CPU bf16 step's largest error
+    against CPU f32, plus BF16_SLACK of the tensor's scale); a sign flip is
+    rounding when |g_f32| lies below it."""
+    import torch
+
+    out = []
+    for n in names:
+        pc, pp = card["params"][n], cpu16["params"][n]
+        over = ((pc - pp).abs() > 2 * LR).nonzero()
+        if not len(over):
+            continue
+        g32 = cpu32["grads"][n]
+        admitted = (BF16_RATIO * (cpu16["grads"][n] - g32).abs().max().item()
+                    + BF16_SLACK * g32.abs().max().item())
+        for idx in over.tolist():
+            i = tuple(idx)
+            a, b = pc[i].abs(), pp[i].abs()
+            top = torch.maximum(a, b)
+            gc, gp = card["grads"][n][i].item(), cpu16["grads"][n][i].item()
+            out.append(dict(name=n, index=idx, d=(pc[i] - pp[i]).abs().item(), p_card=pc[i].item(),
+                            p_cpu_bf16=pp[i].item(), ulp=(torch.nextafter(top, top + 1) - top).item(),
+                            g_card_bf16=gc, g_cpu_bf16=gp, g_cpu_f32=g32[i].item(), abs_g_cpu_f32=abs(g32[i].item()),
+                            flipped=(gc > 0) != (gp > 0), admitted_err=admitted))
+    return out
+
+
+def _bf16_step_parity(phase: str, cfg32, model32, batch: dict, t, noise, want_launches: int,
+                      weight_seed: int) -> None:
     """One deterministic train step (fixed t and noise, dropout and guidance
     dropout off) from the same f32 weights four ways: card bf16 (the bf16
     kernels), card bf16 with cuBLAS's bf16 reduced-precision reduction off
@@ -2268,8 +2332,9 @@ def _bf16_step_parity(phase: str, cfg32, model32, batch: dict, t, noise, want_la
     ref = flat["cpu32"].norm().item()
     worst = {k: _grad_ratios(out[k]["grads"], p16["grads"], p32["grads"]) for k in ("card16", "card16_f32_reduction")}
     d = torch.cat([(c16["params"][n] - p16["params"][n]).abs().flatten() for n in names])
-    row = dict(data_format=cfg32.data_format, batch=len(t), latent=cfg32.latent_dim, layers=cfg32.num_layers,
-               inputs=sorted(batch), t=t.tolist(), loss_card_bf16=c16["metrics"]["loss"],
+    flips = _adamw_sign_flips(c16, p16, p32, names)
+    row = dict(data_format=cfg32.data_format, weight_seed=weight_seed, batch=len(t), latent=cfg32.latent_dim,
+               layers=cfg32.num_layers, inputs=sorted(batch), t=t.tolist(), loss_card_bf16=c16["metrics"]["loss"],
                loss_cpu_bf16=p16["metrics"]["loss"], loss_cpu_f32=p32["metrics"]["loss"], loss_rel_err=loss_rel,
                grads_compared=len(names), cublas_bf16_reduced_precision_reduction=default_reduction,
                grad_rel_l2_cpu_bf16_vs_cpu_f32=(flat["cpu16"] - flat["cpu32"]).norm().item() / ref,
@@ -2277,20 +2342,29 @@ def _bf16_step_parity(phase: str, cfg32, model32, batch: dict, t, noise, want_la
                **{f"worst_tensor_{m}_ratio_{k}": list(worst[k][m]) for k in worst for m in ("l2", "max")},
                same_grad_names=sorted(c16["grads"]) == names == sorted(p16["grads"]),
                param_max_abs_diff_card_vs_cpu_bf16=d.max().item(), params_and_adamw_state_f32=c16["f32"],
+               params_past_2lr=flips,
                card_launches_bf16_fwd_bwd_f32_fwd_bwd=list(c16["launches"]), expected_launches=want_launches,
                card_s=c16["secs"], cpu_bf16_s=p16["secs"], cpu_f32_s=p32["secs"])
     emit(phase, **row)
     ok = (loss_rel <= 1e-2 and worst["card16"]["l2"][0] <= 1.0 and row["same_grad_names"]
-          and d.max().item() <= 2 * LR and c16["f32"] and c16["launches"] == (want_launches, want_launches, 0, 0)
+          and all(f["flipped"] and f["d"] <= 2 * LR + f["ulp"] and f["abs_g_cpu_f32"] <= f["admitted_err"]
+                  for f in flips)
+          and c16["f32"] and c16["launches"] == (want_launches, want_launches, 0, 0)
           and p16["launches"] == (0, 0, 0, 0))
     if not ok:
         raise AssertionError(f"the bf16 train step on the card disagrees with the CPU's: {row}")
 
 
-def phase_train_parity_bf16(seed: int) -> None:
+def phase_train_parity_bf16(seed: int, weight_seeds: int = 3) -> None:
     """One deterministic full-width bf16 train step at batch 4, card against
     CPU: pose on raw audio through the bf16 frontend, face on cached
-    features."""
+    features; at weight seeds ``seed`` .. ``seed + weight_seeds - 1``, each
+    gated."""
+    for s in range(seed, seed + weight_seeds):
+        _train_parity_bf16_seed(s)
+
+
+def _train_parity_bf16_seed(seed: int) -> None:
     import numpy as np
 
     from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
@@ -2301,7 +2375,7 @@ def phase_train_parity_bf16(seed: int) -> None:
     batch = _train_batch(rng, B, T)
     t = np.array([0, 250, 600, 999])
     noise = rng.randn(B, T, cfg.nfeats).astype(np.float32)
-    _bf16_step_parity("train_parity_bf16", cfg, model, batch, t, noise, 2 * cfg.num_layers)
+    _bf16_step_parity("train_parity_bf16", cfg, model, batch, t, noise, 2 * cfg.num_layers, seed)
 
     cfg, model = _face_model(seed, hash_dropout=True)
     rng = np.random.RandomState(seed + 32)
@@ -2311,7 +2385,8 @@ def phase_train_parity_bf16(seed: int) -> None:
              "lengths": lengths, "audio_features": rng.rand(B, tokens_for_frames(T), 1024).astype(np.float32),
              "lip_verts": rng.randn(B, T, 1014).astype(np.float32)}
     noise = rng.randn(B, T, cfg.nfeats).astype(np.float32)
-    _bf16_step_parity("train_parity_bf16", cfg, model, batch, t, noise, cfg.cond_encoder_layers + 2 * cfg.num_layers)
+    _bf16_step_parity("train_parity_bf16", cfg, model, batch, t, noise,
+                      cfg.cond_encoder_layers + 2 * cfg.num_layers, seed)
 
 
 def phase_main_path_train_bf16(seed: int, smi: str) -> dict:
@@ -2424,6 +2499,466 @@ def phase_main_path_generate_bf16(seed: int, smi: str) -> dict:
     return launches
 
 
+VQ_BATCH, VQ_KEYFRAMES = 32, 20  # the JAX VQ CLI's batch; 20 keyframes = a 600-frame clip at 1 fps
+VQ_REL_TOL = 1e-5  # loss (relative), codebooks (of their scale), card vs CPU
+GUIDE_BATCH, GUIDE_FRAMES = 32, 240  # the JAX guide CLI's batch and max_seq_length (= min): 798 audio tokens
+# the guide's audio pre-net gradients, card vs CPU, relative L2 per tensor: on wav2vec features of
+# batch 32 x 798 frames f32 itself sits 1.3e-3 (CPU) and 3.7e-3 (card) from float64 there
+# (PERF.md, PR 11), where the leaky ReLUs' slope flips at pre-activations within rounding of 0
+GUIDE_PRENET_L2 = 1e-3
+VQ_GUIDE_TRAIN_STEPS = 4
+CONVERT_DDIM = 50  # the converted checkpoints' generate, against the source modules'
+
+
+def _profile_call(fn) -> dict:
+    """``fn()`` once more under torch.profiler: wall, device-busy ms, idle
+    share, kernels launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if device_ms == 0.0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return dict(profiled_wall_ms=wall_ms, device_ms=device_ms, device_idle_share=1.0 - device_ms / wall_ms,
+                device_launches=sum(e.count for e in events))
+
+
+def _replayed_rows():
+    """(rows, record, replay): stand-ins for ``vqvae.draw_rows``; ``record``
+    draws as it does and keeps each draw in ``rows``, ``replay`` hands the
+    same rows out again, in order, on the device asked for."""
+    from audio2photoreal_tpu_torch.models import vqvae
+
+    rows, real, served = [], vqvae.draw_rows, []
+
+    def record(n, num, generator, device):
+        r = real(n, num, generator, device)
+        rows.append(r.cpu())
+        return r
+
+    def replay(n, num, generator, device):
+        served.append(None)
+        return rows[len(served) - 1].to(device)
+
+    return rows, record, replay
+
+
+def phase_vq_train_parity(seed: int) -> None:
+    """One VQ step at ``VQConfig()`` (width 64, 1024 codes, depth 4, 10
+    k-means iterations), batch 32 x 20 keyframes, k-means firing in it, on
+    the card against the CPU with the same rows drawn: loss 1e-5 relative;
+    codes equal, or each differing code a near-tie of its two best distances
+    (counted); codebooks 1e-5 of their scale; gradients 1e-4 of their
+    largest element; parameters after AdamW within 2 lr."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.core.config import TrainConfig, VQConfig
+    from audio2photoreal_tpu_torch.models import vqvae
+    from audio2photoreal_tpu_torch.train.loops import vq_train_step
+    from audio2photoreal_tpu_torch.train.state import TrainState
+
+    cfg = VQConfig()
+    cpu = vqvae.TemporalVertexCodec(cfg)
+    cpu.reset_parameters(torch.Generator().manual_seed(seed))
+    gpu = copy.deepcopy(cpu).cuda()
+    kf = np.random.RandomState(seed + 41).randn(VQ_BATCH, VQ_KEYFRAMES, cfg.nfeats).astype(np.float32)
+    rows, record, replay = _replayed_rows()
+    draw_rows = vqvae.draw_rows
+    seen = {}  # per device: [(embed before the update, residual)] of each depth
+    ema = vqvae._ema_layer_update
+
+    def spy(embed, embed_avg, cluster_size, x, onehot, c, generator):
+        seen.setdefault(x.device.type, []).append((embed.detach().cpu(), x.detach().cpu()))
+        return ema(embed, embed_avg, cluster_size, x, onehot, c, generator)
+
+    out = {}
+    vqvae._ema_layer_update = spy
+    try:
+        for device, model, draw in (("cpu", cpu, record), ("cuda", gpu, replay)):
+            vqvae.draw_rows = draw
+            codes = []
+            hook = model.register_forward_hook(lambda m, i, o: codes.append(o.codes.cpu()))
+            state = TrainState(model, TrainConfig(lr=1e-3))
+            t0 = time.perf_counter()
+            metrics = vq_train_step(state, {"keyframes": torch.from_numpy(kf).to(device)},
+                                    torch.Generator(device=device).manual_seed(seed), cfg.commit_weight)
+            secs = time.perf_counter() - t0
+            hook.remove()
+            books = [l._codebook for l in model.quantizer.layers]
+            out[device] = dict(metrics=metrics, codes=codes[0], secs=secs,
+                               grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                               params={n: p.detach().cpu() for n, p in model.named_parameters()},
+                               state={n: torch.stack([getattr(b, n) for b in books]).cpu()
+                                      for n in ("embed", "embed_avg", "cluster_size", "inited")})
+    finally:
+        vqvae._ema_layer_update = ema
+        vqvae.draw_rows = draw_rows
+    c, g = out["cpu"], out["cuda"]
+    differ = (c["codes"] != g["codes"]).nonzero().tolist()  # [b, k, depth]
+    ties, not_ties = 0, []
+    for b, k, d in differ:  # the card's code against the CPU's, on the CPU's residual and codebook
+        embed, x = seen["cpu"][d]
+        r = x[b * VQ_KEYFRAMES + k]
+        d2 = ((r[None] - embed) ** 2).sum(-1)
+        gap = (d2[g["codes"][b, k, d]] - d2[c["codes"][b, k, d]]).abs().item()
+        if gap <= 1e-5 * max(d2.min().item(), (r**2).sum().item(), 1e-30):
+            ties += 1
+        else:
+            not_ties.append([b, k, d, gap])
+    loss_rel = abs(g["metrics"]["loss"] - c["metrics"]["loss"]) / abs(c["metrics"]["loss"])
+    state_err = {n: (g["state"][n] - c["state"][n]).abs().max().item() / max(c["state"][n].abs().max().item(), 1e-30)
+                 for n in ("embed", "embed_avg", "cluster_size")}
+    grad_rel = max((g["grads"][n] - c["grads"][n]).abs().max().item() / max(c["grads"][n].abs().max().item(), 1e-30)
+                   for n in c["grads"])
+    d = torch.cat([(g["params"][n] - c["params"][n]).abs().flatten() for n in c["params"]])
+    row = dict(vectors=VQ_BATCH * VQ_KEYFRAMES, codes=cfg.code_dim, depth=cfg.depth, width=cfg.emb_width,
+               kmeans_iters=cfg.kmeans_iters, rows_drawn=len(rows), loss_gpu=g["metrics"]["loss"],
+               loss_cpu=c["metrics"]["loss"], loss_rel_err=loss_rel,
+               metrics_gpu=g["metrics"], metrics_cpu=c["metrics"], codes_differing=len(differ),
+               codes_differing_near_ties=ties, codes_differing_not_ties=not_ties, state_rel_err=state_err,
+               codes_expired_share=float((c["state"]["cluster_size"] < cfg.threshold_ema_dead_code).float().mean()),
+               inited=g["state"]["inited"].flatten().tolist(), grad_max_rel_err=grad_rel,
+               param_max_abs_diff=d.max().item(), gpu_s=g["secs"], cpu_s=c["secs"], rel_tol=VQ_REL_TOL)
+    emit("vq_train_parity", **row)
+    if not (loss_rel <= VQ_REL_TOL and not not_ties and max(state_err.values()) <= VQ_REL_TOL
+            and grad_rel <= 1e-4 and d.max().item() <= 2 * 1e-3 and all(v == 1.0 for v in row["inited"])
+            and len(rows) == 2 * cfg.depth):
+        raise AssertionError(f"the VQ step on the card disagrees with the CPU's: {row}")
+
+
+def _guide_batch(rng, cached: bool, B: int, frames: int) -> dict:
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
+
+    K = -(-frames // 30)
+    kv = np.ones((B, K), np.float32)
+    kv[-1, -3:] = 0.0
+    b = {"keyframes": rng.randn(B, K, 104).astype(np.float32), "keyframe_valid": kv}
+    if cached:
+        b["audio_features"] = rng.rand(B, tokens_for_frames(frames), 1024).astype(np.float32)
+    else:
+        b["audio"] = (rng.randn(B, frames * 1600, 2) * 0.5).astype(np.float32)
+    return b
+
+
+def phase_guide_train_parity(seed: int) -> None:
+    """One guide step at the JAX CLI's width (``GuideConfig()``: latent 512,
+    6 layers; batch 32 x 240 frames, 798 audio tokens, 8 keyframes x 4 =
+    32 tokens) on the trained-VQ's stand-in (``VQConfig()`` widths, random
+    codebooks), raw audio and cached features, card against CPU, dropout
+    out of the way (eval mode) and the conditioning dropout injected: the
+    train-parity f32 bars (loss 1e-5 relative, each gradient 1e-4 of its
+    largest element, parameters after AdamW within 2 lr and 99.9% within
+    1e-6), accuracy and tokens equal; the audio pre-net's gradients by
+    their relative L2 error (``GUIDE_PRENET_L2``) and its parameters within
+    2 lr, their share within 1e-6 reported."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.core.config import TrainConfig
+    from audio2photoreal_tpu_torch.train.loops import guide_train_step
+    from audio2photoreal_tpu_torch.train.state import TrainState
+
+    guide_cpu, codec_cpu = _guide_models(seed)
+    codec_gpu = copy.deepcopy(codec_cpu).cuda()
+    keep = torch.ones(GUIDE_BATCH, dtype=torch.bool)
+    keep[::5] = False  # the conditioning of every fifth clip dropped
+    for cached in (False, True):
+        batch = _guide_batch(np.random.RandomState(seed + 43 + cached), cached, GUIDE_BATCH, GUIDE_FRAMES)
+        out = {}
+        for device, model, codec in (("cuda", copy.deepcopy(guide_cpu).cuda(), codec_gpu),
+                                     ("cpu", copy.deepcopy(guide_cpu), codec_cpu)):
+            state = TrainState(model.eval(), TrainConfig(lr=2e-4, grad_clip=1.0))
+            t0 = time.perf_counter()
+            metrics = guide_train_step(state, codec, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                                       None, keep_mask=keep.to(device))
+            secs = time.perf_counter() - t0
+            with torch.no_grad():
+                tokens = codec.encode(torch.from_numpy(batch["keyframes"]).to(device)).cpu()
+            out[device] = dict(metrics=metrics, secs=secs, tokens=tokens,
+                               grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                                      if p.grad is not None},
+                               params={n: p.detach().cpu() for n, p in model.named_parameters()})
+            del state, model
+        g, c = out["cuda"], out["cpu"]
+        loss_rel = abs(g["metrics"]["loss"] - c["metrics"]["loss"]) / abs(c["metrics"]["loss"])
+        # the pre-net's gradients pass 12 leaky ReLUs, whose derivative jumps where a pre-activation
+        # is within rounding of 0: there f32 on the card, f32 on the CPU and float64 may take either
+        # slope, so its tensors are held by their relative L2 error (GUIDE_PRENET_L2)
+        prenet = {n for n in c["grads"] if n.startswith("pre_audio.")}
+        rels = sorted(((g["grads"][n] - c["grads"][n]).abs().max().item()
+                       / max(c["grads"][n].abs().max().item(), 1e-30), n) for n in c["grads"] if n not in prenet)
+        l2 = sorted(((g["grads"][n] - c["grads"][n]).norm().item() / max(c["grads"][n].norm().item(), 1e-30), n)
+                    for n in prenet)
+        grad_rel = rels[-1][0]
+        d = torch.cat([(g["params"][n] - c["params"][n]).abs().flatten() for n in c["params"]])
+        rest = torch.cat([(g["params"][n] - c["params"][n]).abs().flatten() for n in c["params"]
+                          if n not in prenet])
+        past = sorted((((g["params"][n] - c["params"][n]).abs() > 1e-6).sum().item(), n) for n in c["params"])
+        row = dict(cached=cached, batch=GUIDE_BATCH, frames=GUIDE_FRAMES, latent=guide_cpu.cfg.latent_dim,
+                   layers=guide_cpu.cfg.num_layers, vocab=guide_cpu.cfg.tokens,
+                   tokens_per_clip=int(g["tokens"][0].numel()), inputs=sorted(batch),
+                   loss_gpu=g["metrics"]["loss"], loss_cpu=c["metrics"]["loss"], loss_rel_err=loss_rel,
+                   acc_gpu=g["metrics"]["acc"], acc_cpu=c["metrics"]["acc"],
+                   grad_norm_gpu=g["metrics"]["grad_norm"], grad_norm_cpu=c["metrics"]["grad_norm"],
+                   tokens_equal=bool(torch.equal(g["tokens"], c["tokens"])), grads_compared=len(c["grads"]),
+                   same_grad_names=sorted(g["grads"]) == sorted(c["grads"]), grad_max_rel_err=grad_rel,
+                   prenet_grad_worst_rel_l2=l2[-3:], prenet_grad_l2_tol=GUIDE_PRENET_L2,
+                   param_max_abs_diff=d.max().item(), param_share_within_1e6=(d <= 1e-6).float().mean().item(),
+                   param_share_within_1e6_outside_prenet=(rest <= 1e-6).float().mean().item(),
+                   worst_grad_tensors_outside_prenet=rels[-3:], most_params_past_1e6=past[-3:],
+                   gpu_s=g["secs"], cpu_s=c["secs"])
+        emit("guide_train_parity", **row)
+        if not (loss_rel <= 1e-5 and row["acc_gpu"] == row["acc_cpu"] and row["tokens_equal"]
+                and row["same_grad_names"] and grad_rel <= 1e-4 and l2[-1][0] <= GUIDE_PRENET_L2
+                and d.max().item() <= 2 * 2e-4 and row["param_share_within_1e6_outside_prenet"] >= 0.999):
+            raise AssertionError(f"the guide step on the card disagrees with the CPU's: {row}")
+
+
+def _steady(step_s) -> dict:
+    steady = step_s[1:]
+    return dict(step_s=step_s, steady_step_ms=1e3 * sum(steady) / len(steady),
+                train_steps_per_s=len(steady) / sum(steady))
+
+
+def phase_main_path_train_vq_guide(seed: int, smi: str) -> dict:
+    """``train_vq`` (``VQConfig()``, batch 32, 600-frame windows, evaluate
+    and ``ckpt_best`` at its last step) on the trainers' synthetic person,
+    then ``train_guide`` (``GuideConfig()``, batch 32, 240 frames) on that
+    VQ directory, raw and on the feature cache, ``VQ_GUIDE_TRAIN_STEPS``
+    steps each; then ``generate`` of the pose model of phase 8 from the
+    trained guide and VQ, 2 clips at DDIM-``CONVERT_DDIM``: the sampled
+    keyframes are the trained VQ's decode of the guide's tokens.  Steps/s
+    (steps 2-4), one more step of each profiled (device ms, idle,
+    launches)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.apps import train_guide, train_vq
+    from audio2photoreal_tpu_torch.apps.generate import find_stats, generate
+    from audio2photoreal_tpu_torch.core.config import DataConfig, GuideConfig, TrainConfig, VQConfig
+    from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
+    from audio2photoreal_tpu_torch.data.loader import FastLoader, SceneIndex
+    from audio2photoreal_tpu_torch.kernels import launch_counts
+    from audio2photoreal_tpu_torch.models import guide as guide_module
+    from audio2photoreal_tpu_torch.train.loops import guide_train_step, vq_train_step
+
+    person, root = "SYNTH01", _train_person(seed)
+    stats = find_stats(os.path.join(root, person))
+    steps = VQ_GUIDE_TRAIN_STEPS
+    launch_counts.clear()
+    # --- the VQ ---------------------------------------------------------------
+    vq_dir = os.path.join(WORK, "train_vq")
+    shutil.rmtree(vq_dir, ignore_errors=True)
+    vcfg, vdata = VQConfig(), DataConfig(person=person, batch_size=VQ_BATCH)
+    timings: dict = {}
+    t0 = time.perf_counter()
+    vstate = train_vq.train(root, vq_dir, vcfg, vdata, TrainConfig(lr=1e-3, num_steps=steps, save_interval=steps,
+                                                                 log_interval=1, warmup_steps=1000, seed=seed),
+                            device="cuda", timings=timings, reader="fastdata")
+    vq_train_s = time.perf_counter() - t0
+    logged = [json.loads(l) for l in open(os.path.join(vq_dir, "log.jsonl"))]
+    loader = FastLoader(SceneIndex(root, person), stats, vdata, reader="fastdata")
+    kf = torch.from_numpy(loader.sample_batch(VQ_BATCH, np.random.RandomState(seed))["keyframes"]).cuda()
+    vprof = _profile_call(lambda: vq_train_step(vstate, {"keyframes": kf}, torch.Generator(device="cuda").manual_seed(7),
+                                                vcfg.commit_weight))
+    vq_numbers = dict(**_steady(timings["step_s"]), eval_s=timings["eval_s"], train_s=vq_train_s, **vprof)
+    vq_numbers["device_idle_share_of_steady_step"] = 1.0 - vprof["device_ms"] / vq_numbers["steady_step_ms"]
+    val = [r for r in logged if "val_recon" in r]
+    vq_checks = {
+        "losses_finite": all(np.isfinite(r["loss"]) for r in logged if "loss" in r),
+        "kmeans_inited": all(l._codebook.inited.item() == 1.0 for l in vstate.model.quantizer.layers),
+        "evaluate_ran": len(val) == 1 and bool(np.isfinite([val[0]["val_recon"], val[0]["val_ppl"]]).all()),
+        "ckpt_best_written": os.path.exists(os.path.join(vq_dir, train_vq.BEST_DIR, "model.pt")),
+        "model_written": os.path.exists(os.path.join(vq_dir, "model.pt")),
+    }
+    emit("main_path_train_vq", nvidia_smi=smi, batch=VQ_BATCH, steps=steps, config=dataclasses.asdict(vcfg),
+         losses=[r["loss"] for r in logged if "loss" in r], perplexity=[r["perplexity"] for r in logged
+                                                                        if "perplexity" in r],
+         val=val, **vq_numbers, checks=vq_checks)
+    del vstate
+    # --- the guide, raw and cached ----------------------------------------------
+    gdata = DataConfig(person=person, batch_size=GUIDE_BATCH, max_seq_length=GUIDE_FRAMES,
+                       min_seq_length=GUIDE_FRAMES)
+    guide_numbers, guide_dirs, checks = {}, {}, dict(vq_checks)
+    for cached in (False, True):
+        variant = "cached" if cached else "raw"
+        d = guide_dirs[variant] = os.path.join(WORK, f"train_guide_{variant}")
+        shutil.rmtree(d, ignore_errors=True)
+        timings = {}
+        t0 = time.perf_counter()
+        gstate = train_guide.train(root, d, vq_dir, GuideConfig(), gdata,
+                                   TrainConfig(lr=2e-4, num_steps=steps, save_interval=10**9, log_interval=1,
+                                               grad_clip=1.0, warmup_steps=1000, seed=seed),
+                                   cache_audio_features=cached, device="cuda", timings=timings, reader="fastdata")
+        train_s = time.perf_counter() - t0
+        logged = [json.loads(l) for l in open(os.path.join(d, "log.jsonl"))]
+        codec = train_guide.load_tokenizer(vq_dir, "cuda")
+        b = FastLoader(SceneIndex(root, person), stats, gdata, reader="fastdata").sample_batch(
+            GUIDE_BATCH, np.random.RandomState(seed))
+        batch = {k: torch.from_numpy(b[k]).cuda() for k in ("keyframes", "keyframe_valid", "audio")}
+        if cached:  # features in place of the audio (their values do not change the work)
+            del batch["audio"]
+            batch["audio_features"] = torch.rand((GUIDE_BATCH, tokens_for_frames(GUIDE_FRAMES), 1024),
+                                                 device="cuda")
+        gprof = _profile_call(lambda: guide_train_step(gstate, codec, batch, torch.Generator().manual_seed(7)))
+        n = dict(**_steady(timings["step_s"]), cache_s=timings.get("cache_s"), train_s=train_s, **gprof)
+        n["device_idle_share_of_steady_step"] = 1.0 - gprof["device_ms"] / n["steady_step_ms"]
+        guide_numbers[variant] = n
+        checks[f"guide_{variant}_losses_finite"] = (len(logged) == steps
+                                                    and all(np.isfinite(r["loss"]) for r in logged))
+        checks[f"guide_{variant}_saved"] = os.path.exists(os.path.join(d, "model.pt"))
+        emit("main_path_train_guide", nvidia_smi=smi, variant=variant, batch=GUIDE_BATCH, frames=GUIDE_FRAMES,
+             steps=steps, vocab=gstate.model.cfg.tokens, vq_depth=gstate.model.cfg.vq_depth,
+             losses=[r["loss"] for r in logged], acc=[r["acc"] for r in logged], **n)
+        del gstate
+    # --- generate from the trained guide and VQ ------------------------------------
+    sampled = []
+    guide_generate = guide_module.GuideTransformer.generate
+
+    def recording_generate(self, *args, **kwargs):
+        out = guide_generate(self, *args, **kwargs)
+        sampled.append(out)
+        return out
+
+    timings = {}
+    guide_module.GuideTransformer.generate = recording_generate
+    try:
+        t0 = time.perf_counter()
+        path = generate(os.path.join(WORK, "pose_model"), WORK, num_samples=2, guidance_param=2.0,
+                        timestep_respacing=f"ddim{CONVERT_DDIM}", guide_path=guide_dirs["cached"], vq_path=vq_dir,
+                        device="cuda", timings=timings, output_dir=os.path.join(WORK, "samples_trained_guide"))
+        generate_s = time.perf_counter() - t0
+    finally:
+        guide_module.GuideTransformer.generate = guide_generate
+    res = np.load(path, allow_pickle=True).item()
+    codec = train_guide.load_tokenizer(vq_dir, "cuda")
+    with torch.no_grad():
+        # generate inverse-normalises by the statistics of its own data root
+        want = find_stats(os.path.join(WORK, person)).inv_pose(
+            codec.decode(sampled[0].reshape(2, -1, vcfg.depth)).cpu().numpy())
+    got = res["keyframes"]
+    checks.update(
+        tokens_in_range=bool(((sampled[0] >= 0) & (sampled[0] < vcfg.code_dim)).all()),
+        keyframes_decode_through_the_trained_vq=got.shape == want.shape
+        and bool(np.abs(got - want).max() <= 1e-5 * max(np.abs(want).max(), 1.0)),
+        motions_finite=bool(np.isfinite(res["motions"]).all()),
+    )
+    emit("main_path_train_vq_guide", nvidia_smi=smi, vq_train_steps_per_s=vq_numbers["train_steps_per_s"],
+         guide_train_steps_per_s={k: v["train_steps_per_s"] for k, v in guide_numbers.items()},
+         vq_device_ms_per_step=vq_numbers["device_ms"],
+         guide_device_ms_per_step={k: v["device_ms"] for k, v in guide_numbers.items()},
+         vq_launches_per_step=vq_numbers["device_launches"],
+         guide_launches_per_step={k: v["device_launches"] for k, v in guide_numbers.items()},
+         vq_idle_share=vq_numbers["device_idle_share_of_steady_step"],
+         guide_idle_share={k: v["device_idle_share_of_steady_step"] for k, v in guide_numbers.items()},
+         guide_s=timings["guide_s"], ddim_steps=CONVERT_DDIM, generate_s=generate_s,
+         keyframes_shape=list(got.shape), port_kernel_launches=dict(launch_counts), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"main path (train VQ -> guide -> generate) checks failed: {checks}")
+    return dict(vq=vq_numbers, guide=guide_numbers)
+
+
+def phase_convert_reference_tree(seed: int, smi: str) -> None:
+    """A reference-layout checkpoint tree written from random full-width port
+    modules (the pose denoiser at ``DenoiserConfig()``, the guide at
+    ``GuideConfig()``, the VQ at ``VQConfig()``'s widths; the ``args.json``
+    fields of the JAX package's CLI test, ``{"net": ...}``, ``{"model_state_dict":
+    ...}`` with 1998 null rows, rotary tables and vq-wav2vec's other parts
+    beside the denoiser's keys), converted by ``convert_person``; then
+    ``generate`` on the card from the converted dirs and from the source
+    modules' own dirs, same seed: results equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.apps.convert_checkpoint import convert_person
+    from audio2photoreal_tpu_torch.apps.generate import MODEL_FILE, generate
+    from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, save_config
+    from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
+
+    person = "SYNTH01"
+    tree, out = os.path.join(WORK, "reference_tree"), os.path.join(WORK, "converted")
+    for d in (tree, out):
+        shutil.rmtree(d, ignore_errors=True)
+    common = dict(max_seq_length=600, add_frame_cond=1, data_root=f"dataset/{person}")
+
+    def args(d, **kw):
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "args.json"), "w") as f:
+            json.dump({**kw, **common}, f)
+
+    t0 = time.perf_counter()
+    mcfg = DenoiserConfig(data_format="pose")
+    pose = FiLMDenoiser(mcfg)
+    pose.reset_parameters(torch.Generator().manual_seed(seed + 51))
+    guide, codec = _guide_models(seed + 52)
+    src = {"pose": os.path.join(WORK, "source_pose")}
+    save_config(src["pose"], denoiser=mcfg, diffusion=DiffusionConfig(),
+                data=DataConfig(person=person, max_seq_length=600))
+    torch.save(pose.state_dict(), os.path.join(src["pose"], MODEL_FILE))
+    for name, model, section in (("guide", guide, dict(guide=guide.cfg)), ("vq", codec, dict(vq=codec.cfg))):
+        src[name] = os.path.join(WORK, f"source_{name}")
+        save_config(src[name], **section)
+        torch.save(model.state_dict(), os.path.join(src[name], MODEL_FILE))
+    d = os.path.join(tree, "diffusion", "c1_pose")
+    args(d, data_format="pose", layers=mcfg.num_layers, heads=mcfg.num_heads, noise_schedule="cosine",
+         sigma_small=True, lambda_vel=0.0, not_rotary=False)
+    sd = dict(pose.state_dict(), **{"rotary.freqs": torch.zeros(32),
+                                     "audio_model.feature_aggregator.conv_layers.0.1.weight": torch.zeros(4, 4, 2)})
+    sd.update({f"seqTransDecoder.stack.{i}.rotary.freqs": sd["rotary.freqs"] for i in range(mcfg.num_layers)})
+    torch.save(sd, os.path.join(d, "model000340000.pt"))
+    vd = os.path.join(tree, "vq", "c1_vq")
+    args(vd, nb_joints=104, output_emb_width=codec.cfg.emb_width, code_dim=codec.cfg.code_dim,
+         depth=codec.cfg.depth, data_format="pose")
+    torch.save({"net": codec.state_dict()}, os.path.join(vd, "net_iter300000.pth"))
+    gd = os.path.join(tree, "guide", "c1_pose")
+    args(gd, layers=guide.cfg.num_layers, dim=guide.cfg.latent_dim, num_audio_layers=2,
+         resume_pth=os.path.join(vd, "net_iter300000.pth"), data_format="pose")
+    gsd = guide.state_dict()
+    gsd["null_cond_embed"] = gsd["null_cond_embed"][:, :1998].clone()
+    os.makedirs(os.path.join(gd, "checkpoints"))
+    torch.save({"model_state_dict": gsd}, os.path.join(gd, "checkpoints", "iter-0100000.pt"))
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conv = convert_person(tree, person, out)
+    convert_s = time.perf_counter() - t0
+    results = {}
+    for which, (m, g, v) in {"source": (src["pose"], src["guide"], src["vq"]),
+                             "converted": (conv["c1_pose"], conv["guide_c1_pose"], conv["c1_vq"])}.items():
+        path = generate(m, WORK, num_samples=2, guidance_param=2.0, timestep_respacing=f"ddim{CONVERT_DDIM}",
+                        guide_path=g, vq_path=v, seed=seed, device="cuda",
+                        output_dir=os.path.join(WORK, f"samples_{which}"))
+        results[which] = np.load(path, allow_pickle=True).item()
+    s, c = results["source"], results["converted"]
+    checks = {
+        "families": sorted(conv) == ["c1_pose", "c1_vq", "guide_c1_pose"],
+        "motions_bit_equal": np.array_equal(s["motions"], c["motions"]),
+        "keyframes_bit_equal": np.array_equal(s["keyframes"], c["keyframes"]),
+        "motions_finite": bool(np.isfinite(c["motions"]).all()),
+    }
+    emit("convert_reference_tree", nvidia_smi=smi, families=sorted(conv), write_s=write_s, convert_s=convert_s,
+         ddim_steps=CONVERT_DDIM, motions_shape=list(c["motions"].shape),
+         max_abs_diff=float(np.abs(s["motions"] - c["motions"]).max()), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"generate from the converted tree differs from the source modules': {checks}")
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2461,6 +2996,10 @@ def main() -> None:
     bwd16 = {path: counts[1] for path, counts in train16.items()}
     if min(fwd16.values()) < 1 or min(bwd16.values()) < 1:
         raise AssertionError(f"a bf16 path launched no bf16 attention kernel: {fwd16}, {bwd16}")
+    phase_vq_train_parity(args.seed)
+    phase_guide_train_parity(args.seed)
+    phase_main_path_train_vq_guide(args.seed, smi)
+    phase_convert_reference_tree(args.seed, smi)
 
     import torch
 

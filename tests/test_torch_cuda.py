@@ -751,10 +751,10 @@ def test_guide_keyframer_on_the_card(cuda, full_guide, tmp_path):
     from audio2photoreal_tpu_torch.core.config import GuideConfig, VQConfig, save_config
     from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
 
-    codec = TemporalVertexCodec(VQConfig())
+    codec = TemporalVertexCodec(VQConfig(kmeans_init=False))
     codec.reset_parameters(torch.Generator().manual_seed(1))
     for name, model, section in (("guide", full_guide[0], dict(guide=GuideConfig())),
-                                 ("vq", codec, dict(vq=VQConfig()))):
+                                 ("vq", codec, dict(vq=codec.cfg))):
         save_config(str(tmp_path / name), **section)
         torch.save(model.state_dict(), str(tmp_path / name / MODEL_FILE))
     keyframer = GuideKeyframer(str(tmp_path / "guide"), str(tmp_path / "vq"), cuda)

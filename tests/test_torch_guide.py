@@ -146,8 +146,6 @@ def test_codec_decode_encode_forward_match_jax(vq_setup):
     assert_scaled(got.recon.numpy(), recon, what="recon")
     assert float(got.commit_loss) == float(commit) == 0.0
     assert np.isclose(float(got.perplexity), float(ppl), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        model(torch.from_numpy(s["motion"]), train=True)
 
 
 def test_vqvae_state_dict_round_trips_through_convert_vqvae(vq_setup):
@@ -163,14 +161,21 @@ def test_vqvae_state_dict_round_trips_through_convert_vqvae(vq_setup):
 
 
 def test_vq_reset_parameters_draws_codebooks_he_uniform():
-    model = vqvae.TemporalVertexCodec(VQConfig())
+    """Without k-means init the codebooks are drawn he-uniform and inited;
+    with it (``VQConfig()``'s default) they are 0 and not inited, as
+    ``VQState.create`` makes them."""
+    model = vqvae.TemporalVertexCodec(VQConfig(kmeans_init=False))
     model.reset_parameters(torch.Generator().manual_seed(0))
     embed = model.quantizer.embed
     limit = (6.0 / (1024 * 4)) ** 0.5  # he-uniform over [depth, codes, dim]: fan-in codes x depth
     assert embed.shape == (4, 1024, 64) and embed.abs().max() <= limit
     assert 0.9 * limit < embed.abs().max() and abs(embed.std().item() - limit / 3**0.5) < 0.01 * limit
     cb = model.quantizer.layers[0]._codebook
-    assert torch.equal(cb.embed_avg, cb.embed) and not cb.cluster_size.any()
+    assert torch.equal(cb.embed_avg, cb.embed) and not cb.cluster_size.any() and cb.inited.item() == 1.0
+    model = vqvae.TemporalVertexCodec(VQConfig())
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    assert not model.quantizer.embed.any()
+    assert all(l._codebook.inited.item() == 0.0 for l in model.quantizer.layers)
 
 
 # --------------------------------------------------------------- guide -- #

@@ -173,3 +173,17 @@ def test_train_iterator_resumes_and_ends(root, stats):
     for fc in (cache, None):
         with pytest.raises(FileNotFoundError):
             loader.make_train_iterator(root, st, DataConfig(**{**DATA, "person": "NOBODY"}), feature_cache=fc)
+
+
+@pytest.mark.parametrize("reader", ["fastdata", "numpy"])
+def test_batches_without_audio_are_the_batches_less_their_audio(root, stats, reader):
+    """``audio=False`` (the VQ trainer's batches): the same windows, keyframes
+    and masks as with audio, drawn from the same generator, and no audio."""
+    cfg = DataConfig(data_format="pose", batch_size=4, **DATA)
+    index = loader.SceneIndex(root, PERSON, "train", cfg.num_val_seqs, cfg.num_test_seqs)
+    st = DataStats.load(stats)
+    want = loader.FastLoader(index, st, cfg, reader=reader).sample_batch(4, np.random.RandomState(7))
+    got = loader.FastLoader(index, st, cfg, reader=reader, audio=False).sample_batch(4, np.random.RandomState(7))
+    assert "audio" in want and sorted(got) == sorted(k for k in want if k != "audio")
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

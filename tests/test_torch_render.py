@@ -198,9 +198,9 @@ def test_render_sequence_multicam_matches_jax(avatar, port_renderer):
     assert np.abs(one.astype(int) - got[:, :, 32:].astype(int)).max() <= 1
 
 
-def test_generate_plot_writes_each_sample_through_a_bundle(tmp_path, avatar):
-    T = 64
-    root = str(tmp_path)
+def _plot_inputs(root, avatar, T=64):
+    """A synthetic person, a tiny pose model's checkpoint dir and a renderer
+    bundle of the avatar fixture."""
     make_synthetic_person(root, "SYNTH01", num_scenes=5, frames_per_scene=T, seed=3)
     mcfg = DenoiserConfig(data_format="pose", latent_dim=16, ff_size=32, num_layers=1, num_heads=2,
                           max_seq_length=T, dropout=0.0)
@@ -212,6 +212,13 @@ def test_generate_plot_writes_each_sample_through_a_bundle(tmp_path, avatar):
     torch.save(model.state_dict(), os.path.join(model_dir, generate.MODEL_FILE))
     bundle = save_renderer_bundle(os.path.join(root, "renderer"), avatar["cfg"], avatar["sd"],
                                   _cams(Camera))
+    return model_dir, bundle
+
+
+def test_generate_plot_writes_each_sample_through_a_bundle(tmp_path, avatar):
+    T = 64
+    root = str(tmp_path)
+    model_dir, bundle = _plot_inputs(root, avatar, T)
     out_dir = os.path.join(root, "out")
     path = generate.generate(model_dir, root, num_samples=2, timestep_respacing="ddim2", device="cpu",
                              output_dir=out_dir)
@@ -239,6 +246,35 @@ def test_generate_plot_writes_each_sample_through_a_bundle(tmp_path, avatar):
     with pytest.raises(ValueError, match="other audio"):
         generate.generate(model_dir, root, num_samples=1, timestep_respacing="ddim2", device="cpu",
                           output_dir=out_dir, plot=True, face_codes=face_path, renderer_path=bundle)
+
+
+def test_generate_plot_renders_every_repetition(tmp_path, avatar):
+    """2 samples x 2 repetitions: the motions hold a row per (repetition,
+    sample), lengths / audio / gt a row per sample; every
+    ``sampleNN_repMM`` video is written, each from its own motion row."""
+    T = 64
+    root = str(tmp_path)
+    model_dir, bundle = _plot_inputs(root, avatar, T)
+    out_dir = os.path.join(root, "out")
+    path = generate.generate(model_dir, root, num_samples=2, num_repetitions=2, timestep_respacing="ddim2",
+                             device="cpu", output_dir=out_dir)
+    res = np.load(path, allow_pickle=True).item()
+    assert res["motions"].shape[0] == 4 and res["audio"].shape[0] == res["lengths"].shape[0] == 2
+    codes = np.random.RandomState(5).randn(4, 256, 1, T).astype(np.float32) * 0.05
+    face_path = os.path.join(root, "face_results.npy")
+    np.save(face_path, {"motions": codes, "gt": codes[:2], "audio": res["audio"], "lengths": res["lengths"]})
+    generate.generate(model_dir, root, num_samples=2, num_repetitions=2, timestep_respacing="ddim2",
+                      device="cpu", output_dir=out_dir, plot=True, face_codes=face_path, renderer_path=bundle)
+    for i in range(2):
+        for r in range(2):
+            files = [f for f in os.listdir(out_dir) if f.startswith(f"sample{i:02d}_rep{r:02d}_pred")]
+            assert len(files) == 1, os.listdir(out_dir)
+    if files[0].endswith(".npz"):
+        got = {(i, r): np.load(os.path.join(out_dir, f"sample{i:02d}_rep{r:02d}_pred.npz"))["frames"]
+               for i in range(2) for r in range(2)}
+        for i in range(2):
+            assert got[i, 0].shape == got[i, 1].shape == (int(res["lengths"][i]), 48, 64, 3)
+            assert not np.array_equal(got[i, 0], got[i, 1])  # each repetition its own motion
 
 
 def test_bundle_with_the_jax_only_fields_loads(tmp_path, avatar):
