@@ -12,11 +12,14 @@ modules keep) that ``apps/generate.py`` (``--model_path``,
 
 The state dicts need no renaming.  Each is loaded into its port module with
 ``strict=True`` before it is saved, so a key the port lacks, or one it
-misses, raises; the only keys dropped are those of ``REFERENCE_ONLY``,
-which the JAX package's converters (``train/convert.py``) never read
-either.  The ca_body avatar (``convert_avatar_checkpoint``, JAX :258) is
-not ported yet: it needs the real per-person assets' converter (ROADMAP
-queue 1, item 4), and ``convert_person`` raises on a tree that holds one.
+misses, raises; the only keys dropped are those of ``REFERENCE_ONLY``
+(``AVATAR_REFERENCE_ONLY`` for the avatar), which the JAX package's
+converters (``train/convert.py``) never read either.  The ca_body avatar (``convert_avatar_checkpoint``): a person's
+``ca_body/data/<person>/`` (``body_dec.ckpt`` + ``static_assets.pt``) → a
+renderer bundle (``render/assets.py``) that
+``apps/render_pipeline.py:load_body_renderer`` renders; its cameras come
+from ``render_defaults_<person>.pth`` when there is one, else a frontal rig
+aimed at the template's centre (the JAX converter's fallback).
 
 Per-model usage (paths follow the reference README)::
 
@@ -27,10 +30,16 @@ Per-model usage (paths follow the reference README)::
     python -m audio2photoreal_tpu_torch.apps.convert_checkpoint \\
         --guide checkpoints/guide/c1_pose/checkpoints/iter-0100000.pt \\
         --vq_args checkpoints/vq/c1_vq/args.json --out out/c1_guide
+    python -m audio2photoreal_tpu_torch.apps.convert_checkpoint \\
+        --avatar checkpoints/ca_body/data/PXB184 \\
+        --render_defaults assets/render_defaults_PXB184.pth --out out/renderer
 
 or a whole person: ``--checkpoints_root checkpoints/ --person PXB184 --out
-converted/``.  It runs on the host: files are read with ``torch.load``
-(``weights_only``: tensors and plain containers only) on the CPU.
+converted/``; there the avatar's cameras are read from
+``assets/render_defaults_<person>.pth`` beside ``checkpoints/`` (the
+reference repo's layout).  It runs on the host: checkpoints are read with
+``torch.load`` (``weights_only``: tensors and plain containers only) on the
+CPU.
 """
 
 from __future__ import annotations
@@ -40,8 +49,9 @@ import glob
 import json
 import os
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from audio2photoreal_tpu_torch.core.config import (
@@ -56,6 +66,9 @@ from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
 from audio2photoreal_tpu_torch.models.guide import GuideTransformer
 from audio2photoreal_tpu_torch.models.lip_regressor import LipRegressor
 from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
+from audio2photoreal_tpu_torch.render.assets import (STATIC_ASSETS_FILE, Camera, load_render_defaults,
+                                                     make_synthetic_assets, save_renderer_bundle)
+from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar, RendererConfig
 from audio2photoreal_tpu_torch.train.checkpoints import save_model
 
 # Keys of a released state dict that no port module has and no converter of
@@ -69,8 +82,21 @@ REFERENCE_ONLY = (
     r"(^|\.)audio_encoder\.wav2vec_model\.(?!feature_extractor\.|feature_aggregator\.)",
     r"(^|\.)rotary\.freqs$",
 )
-AVATAR_TODO = ("converting the ca_body avatar (body_dec.ckpt, JAX convert_avatar_checkpoint) is not ported: "
-               "it waits for the real-assets converter, ROADMAP queue 1, item 4")
+# What a ca_body AutoEncoder's state dict (mesh_vae_drivable.py:AutoEncoder)
+# holds beyond the parameters of the port's BodyAvatar: the buffers of its
+# static assets, which the port rebuilds from static_assets.pt (the texture
+# mean, the condition and region masks, the AO mean, the frontal view, the
+# geometry, seam and LBS modules wherever a submodule holds them) and the
+# training-only modules (the per-camera calibration, the blur, the pixel
+# bias and the differentiable renderer), which the inference bundle does not
+# run.  The JAX converter (train/convert.py:convert_body_avatar) reads none
+# of these.
+AVATAR_REFERENCE_ONLY = (
+    r"(^|\.)(tex_mean|tex_std|ao_mean|frontal_view|\w*mask)$",
+    r"(^|\.)(geo_fn|lbs_fn|seam_sampler\w*)\.",
+    r"^(cal|pixel_cal|learn_blur|renderer)\.",
+)
+AVATAR_CKPT = "body_dec.ckpt"
 
 
 def _load_torch(path: str) -> Any:
@@ -102,11 +128,14 @@ def _data_config(args: Dict[str, Any], add_frame_cond: Optional[int]) -> DataCon
     )
 
 
-def _load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> torch.nn.Module:
-    """``sd`` less its ``REFERENCE_ONLY`` keys, into ``model``, strictly."""
+def _load_into(model: torch.nn.Module, sd: Dict[str, torch.Tensor], assign: bool = False,
+               reference_only: Tuple[str, ...] = REFERENCE_ONLY) -> torch.nn.Module:
+    """``sd`` less those of its keys that ``model`` lacks and that match
+    ``reference_only``, into ``model``, strictly (``assign``: the model takes
+    ``sd``'s tensors themselves)."""
     own = set(model.state_dict())
-    drop = [k for k in sd if k not in own and any(re.search(p, k) for p in REFERENCE_ONLY)]
-    model.load_state_dict({k: v for k, v in sd.items() if k not in drop}, strict=True)
+    drop = [k for k in sd if k not in own and any(re.search(p, k) for p in reference_only)]
+    model.load_state_dict({k: v for k, v in sd.items() if k not in drop}, strict=True, assign=assign)
     return model
 
 
@@ -239,17 +268,63 @@ def convert_lip_checkpoint(ckpt_path: str, out_dir: str) -> str:
 
 
 # ------------------------------------------------------------------ #
+# ca_body photoreal avatar
+# ------------------------------------------------------------------ #
+
+
+def frontal_rig(template_verts, cfg: RendererConfig) -> Dict[str, Camera]:
+    """One camera on the template's +z axis, 3.5 of its extents from its
+    centre, looking back at it (the JAX converter's fallback)."""
+    verts = np.asarray(template_verts, np.float32).reshape(-1, 3)
+    c = verts.mean(0)
+    extent = float(np.abs(verts - c).max())
+    H, W = cfg.image_height, cfg.image_width
+    f = 1.2 * max(H, W)
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    campos = c + np.array([0.0, 0.0, 3.5 * extent], np.float32)
+    R = np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32)
+    return {"frontal": Camera(campos=campos, K=K, Rt=np.concatenate([R, (-R @ campos)[:, None]], 1))}
+
+
+def convert_avatar_checkpoint(person_dir: str, out_dir: str, render_defaults: Optional[str] = None,
+                              cfg: Optional[RendererConfig] = None) -> str:
+    """ca_body/data/<person>/ (``body_dec.ckpt`` + ``static_assets.pt``,
+    render_codes.py:60-90) → renderer bundle at ``cfg`` (default
+    ``RendererConfig()``, the released avatars' widths).  The checkpoint's
+    state dict (bare, or under ``model_state_dict`` / ``model``), less its
+    ``AVATAR_REFERENCE_ONLY`` keys, is checked strictly against the port's
+    reference-named BodyAvatar and saved as it is; ``static_assets.pt`` is
+    copied beside it."""
+    cfg = cfg or RendererConfig()
+    ckpt = _load_torch(os.path.join(person_dir, AVATAR_CKPT))
+    sd = ckpt.get("model_state_dict", ckpt.get("model", ckpt))
+    # the parameters' shapes follow cfg alone: the smallest synthetic assets do
+    assets = make_synthetic_assets(RendererConfig(uv_size=16, init_uv_size=16, upscale_size=16, shadow_size=16,
+                                                  encoder_in_size=16))
+    with torch.device("meta"):  # names and shapes only: the tensors stay the file's
+        model = BodyAvatar(cfg, assets)
+    sd = _load_into(model, sd, assign=True, reference_only=AVATAR_REFERENCE_ONLY).state_dict()
+    assets_path = os.path.join(person_dir, STATIC_ASSETS_FILE)
+    if render_defaults and os.path.exists(render_defaults):
+        cams = load_render_defaults(render_defaults)
+    else:
+        a = torch.load(assets_path, map_location="cpu", weights_only=False)
+        cams = frontal_rig(a["lbs_template_verts"], cfg)
+    save_renderer_bundle(out_dir, cfg, sd, cams, static_assets=assets_path)
+    print(f"[avatar] {person_dir} -> {out_dir}")
+    return out_dir
+
+
+# ------------------------------------------------------------------ #
 # whole-person driver
 # ------------------------------------------------------------------ #
 
 
 def convert_person(checkpoints_root: str, person: str, out_root: str) -> Dict[str, str]:
     """Convert every model family found for one person, the latest
-    checkpoint of each (the layout of scripts/download_prereq.sh +
-    download_allmodels.sh, README.md:178-198).  Raises before converting
-    anything when the tree holds the person's avatar (``AVATAR_TODO``)."""
-    if os.path.exists(os.path.join(checkpoints_root, "ca_body", "data", person, "body_dec.ckpt")):
-        raise NotImplementedError(AVATAR_TODO)
+    checkpoint of each, and the person's avatar into ``renderer`` (the
+    layout of scripts/download_prereq.sh + download_allmodels.sh,
+    README.md:178-198)."""
     out: Dict[str, str] = {}
     droot = os.path.join(checkpoints_root, "diffusion")
     for tag_dir in sorted(glob.glob(os.path.join(droot, "c*_face")) + glob.glob(os.path.join(droot, "c*_pose"))):
@@ -268,6 +343,11 @@ def convert_person(checkpoints_root: str, person: str, out_root: str) -> Dict[st
             name = "guide_" + os.path.basename(g_dir)
             out[name] = convert_guide_checkpoint(its[-1], os.path.join(out_root, name),
                                                  checkpoints_root=checkpoints_root)
+    person_dir = os.path.join(checkpoints_root, "ca_body", "data", person)
+    if os.path.exists(os.path.join(person_dir, AVATAR_CKPT)):
+        rd = os.path.join(os.path.dirname(os.path.normpath(checkpoints_root)), "assets",
+                          f"render_defaults_{person}.pth")
+        out["renderer"] = convert_avatar_checkpoint(person_dir, os.path.join(out_root, "renderer"), rd)
     if not out:
         raise FileNotFoundError(f"no convertible checkpoints under {checkpoints_root}")
     return out
@@ -281,13 +361,11 @@ def main() -> None:
     p.add_argument("--guide", help="path to guide checkpoints/iter-X.pt")
     p.add_argument("--vq_args", help="args.json of the VQ the guide was trained on")
     p.add_argument("--lip", help="path to standalone lip regressor iter-X.pt")
-    p.add_argument("--avatar", help="checkpoints/ca_body/data/<person> dir (not ported yet: raises)")
+    p.add_argument("--avatar", help="checkpoints/ca_body/data/<person> dir")
     p.add_argument("--render_defaults", help="assets/render_defaults_<person>.pth (with --avatar)")
     p.add_argument("--checkpoints_root", help="convert everything under this root")
     p.add_argument("--person", default="PXB184")
     a = p.parse_args()
-    if a.avatar:
-        raise NotImplementedError(AVATAR_TODO)
     did = False
     if a.checkpoints_root:
         convert_person(a.checkpoints_root, a.person, a.out)
@@ -303,6 +381,9 @@ def main() -> None:
         did = True
     if a.lip:
         convert_lip_checkpoint(a.lip, a.out)
+        did = True
+    if a.avatar:
+        convert_avatar_checkpoint(a.avatar, a.out, render_defaults=a.render_defaults)
         did = True
     if not did:
         p.error("nothing to convert: pass --checkpoints_root or a per-model path")

@@ -12,11 +12,15 @@ visualize/render_codes.py):
 ``render_sequence_multicam`` decodes each frame batch once
 (``BodyAvatar.decode_frame``, the body encode hoisted to the template's
 embedding) and runs one ``render_view`` per camera over it.  The avatar runs
-on the card unless the caller passes ``device="cpu"``.
+on the card unless the caller passes ``device="cpu"``.  A trained bundle
+(``apps/train_avatar.py``: ``n_cameras > 0``, the calibration in its
+``model.pt``) renders with the inference forward, which has no use for the
+calibration: its entries are left out.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -44,8 +48,9 @@ class BodyRenderer:
         self.cfg = cfg
         self.cameras = cameras
         self.frame_batch = frame_batch
-        self.model = BodyAvatar(cfg, assets)
-        self.model.load_state_dict(state_dict, strict=True)
+        self.model = BodyAvatar(dataclasses.replace(cfg, n_cameras=0), assets)
+        self.model.load_state_dict({k: v for k, v in state_dict.items()
+                                    if k.split(".")[0] not in BodyAvatar.CALIBRATION}, strict=True)
         self.model = self.model.to(self.device).eval()
         with torch.no_grad():
             self._template_embs = self.model.template_body_embs()  # [1, n_embs]
@@ -121,8 +126,9 @@ class BodyRenderer:
 
 def load_body_renderer(renderer_dir: str, frame_batch: int = 8, device: Optional[str] = None) -> BodyRenderer:
     """Load a renderer bundle (``render/assets.py``: renderer.json +
-    model.pt + cameras.npz [+ assets.json]) onto ``device`` (default: the
-    card; without one this raises)."""
+    model.pt + cameras.npz [+ assets.json | static_assets.pt]) onto
+    ``device`` (default: the card; without one this raises).  The weights
+    are ``model.pt``'s, which the avatar trainer rewrites at each save."""
     dev = resolve_device(device)
     cfg, assets, sd, cameras = load_bundle_parts(renderer_dir)
     return BodyRenderer(cfg, assets, sd, cameras, frame_batch=frame_batch, device=dev)

@@ -335,7 +335,8 @@ def body_avatar_state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict
 
     Block counts follow ``cfg`` (a RendererConfig of either package), so
     the small test configs convert as well as the production one.  The
-    JAX tree has ``shadow_net`` only when its init ran the shadow UNet."""
+    JAX tree has ``shadow_net`` only when its init ran the shadow UNet, and
+    ``cal`` / ``learn_blur`` / ``pixel_cal`` only at ``n_cameras > 0``."""
     import math
 
     from audio2photoreal_tpu_torch.render.mesh_vae import _embs_plan, _face_plan
@@ -379,4 +380,8 @@ def body_avatar_state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict
         shadow_unet_state_dict(sd, "shadow_net", p["shadow_net"])
     pose_to_shadow_state_dict(sd, "pose_to_shadow", p["pose_to_shadow"])
     upscale_net_state_dict(sd, "upscale_net", p["upscale_net"])
+    if "cal" in p:  # the training calibration (n_cameras > 0)
+        sd["cal.weight"], sd["cal.bias"] = _a(p["cal"]["weight"]), _a(p["cal"]["bias"])
+        sd["learn_blur.weights"] = _a(p["learn_blur"]["weights"])
+        sd["pixel_cal.bias"] = _a(np.asarray(p["pixel_cal"]["bias"]).transpose(0, 3, 1, 2))  # [N, h, w, 1]
     return sd

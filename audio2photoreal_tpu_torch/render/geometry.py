@@ -127,31 +127,40 @@ class GeometryModule(nn.Module):
         self.register_buffer("v2uv", t(v2uv, torch.long), persistent=False)
 
     @classmethod
-    def create(cls, verts_faces: np.ndarray, uv_coords: np.ndarray, uv_faces: np.ndarray,
-               uv_size: int) -> "GeometryModule":
-        """Build the maps host-side: texels up to 100 texels from a chart are
-        impainted (the reference's distance_threshold), and each geometry
-        vertex takes the UV vertex of its first uv-face occurrence (v2uv
-        [V, 1]: exact for an atlas without seam-duplicated vertices)."""
-        face_index, barys = rasterize_uv_maps(uv_coords, uv_faces, uv_size)
+    def create(cls, verts_faces: np.ndarray, uv_coords: np.ndarray, uv_faces: np.ndarray, uv_size: int,
+               impaint: bool = True, flip_uv: bool = False, v2uv: Optional[np.ndarray] = None,
+               impaint_threshold: float = 100.0) -> "GeometryModule":
+        """Build the maps host-side.  With ``impaint``, texels nearer than
+        ``impaint_threshold`` texels to a chart take its nearest texel (the
+        reference's distance_threshold); ``flip_uv`` rasterizes v as 1 - v.
+        ``v2uv`` [V, K] lists each geometry vertex's UV duplicates (real
+        topologies duplicate vertices on UV seams; ``from_uv`` averages over
+        K); without it each vertex takes the UV vertex of its first uv-face
+        occurrence ([V, 1]: exact for an atlas with no seam duplicates)."""
+        face_index, barys = rasterize_uv_maps(uv_coords, uv_faces, uv_size, flip_v=flip_uv)
         valid = (face_index >= 0).astype(np.float32)
-        face_index, barys = impaint_index_maps(face_index, barys, 100.0)
+        if impaint:
+            face_index, barys = impaint_index_maps(face_index, barys, impaint_threshold)
         vert_index = uv_vert_index_from_face_index(face_index, np.asarray(verts_faces))
-        vf = np.asarray(verts_faces).reshape(-1)
-        uf = np.asarray(uv_faces).reshape(-1)
-        v2uv = np.zeros((int(vf.max()) + 1, 1), np.int64)
-        seen = np.zeros(len(v2uv), bool)
-        for gi, ti in zip(vf, uf):
-            if not seen[gi]:
-                v2uv[gi, 0] = ti
-                seen[gi] = True
-        return cls(verts_faces, uv_coords, uv_faces, vert_index, barys, valid, v2uv)
+        if v2uv is None:
+            vf = np.asarray(verts_faces).reshape(-1)
+            uf = np.asarray(uv_faces).reshape(-1)
+            v2uv = np.zeros((int(vf.max()) + 1, 1), np.int64)
+            seen = np.zeros(len(v2uv), bool)
+            for gi, ti in zip(vf, uf):
+                if not seen[gi]:
+                    v2uv[gi, 0] = ti
+                    seen[gi] = True
+        return cls(verts_faces, uv_coords, uv_faces, vert_index, barys, valid, np.asarray(v2uv, np.int64))
 
     def to_uv(self, values: torch.Tensor) -> torch.Tensor:
         """[B, V, C] → [B, C, H, W] (values_to_uv, geom.py:304-322)."""
         gathered = values[:, self.vert_index_img]  # [B, H, W, 3, C]
         uv = (gathered * self.bary_img[None, ..., None]).sum(dim=-2)  # [B, H, W, C]
-        return uv.permute(0, 3, 1, 2)
+        # contiguous NCHW: on the CPU, the weight gradient of the body
+        # encoder's strided convs from the channels-last view corrupts the
+        # heap (PyTorch 2.13)
+        return uv.permute(0, 3, 1, 2).contiguous()
 
     def from_uv(self, uv_img: torch.Tensor) -> torch.Tensor:
         """[B, C, H, W] → [B, V, C] (sample_uv, geom.py:274-302)."""

@@ -119,16 +119,25 @@ class LBSModule(nn.Module):
         skin_indices,  # [V, K]
         skin_weights,  # [V, K]
         template_verts,  # [V, 3] or [1, V, 3]
+        global_scaling: float = 1.0,
+        bind_offsets=None,  # [7J]
     ):
-        """The bind state is solved from an all-zero pose (lbs.py:112-115).
-        The reference's global scaling is 1 for the synthetic person; real
-        per-person assets, which carry another, are not ported yet."""
+        """The bind state is solved from an all-zero pose (lbs.py:112-115)
+        with ``bind_offsets`` as the channel offsets (default
+        ``transform_offsets``).  Real per-person assets fold their constant
+        scale parameters into ``transform_offsets``
+        (``assets.convert_static_assets``); the reference solves the bind
+        with zero scale, so they pass the offsets from before that fold
+        here.  ``pose`` scales its output and ``unpose`` its input by
+        ``global_scaling`` (lbs.py:152-212)."""
         super().__init__()
         self.skel = skel
+        self.global_scaling = float(global_scaling)
         f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)  # noqa: E731
         transform = f32(transform)
         offsets = f32(transform_offsets)
-        params0 = param_transform(torch.zeros((1, transform.shape[1])), transform, offsets)
+        bind = offsets if bind_offsets is None else f32(bind_offsets).reshape(-1)
+        params0 = param_transform(torch.zeros((1, transform.shape[1])), transform, bind)
         tv = f32(template_verts)
         self.register_buffer("transform", transform, persistent=False)
         self.register_buffer("transform_offsets", offsets, persistent=False)
@@ -146,12 +155,13 @@ class LBSModule(nn.Module):
         """Skin (delta + template): ``verts_unposed`` is a DELTA from the
         template (lbs.py:809-813)."""
         verts = self.template_verts if verts_unposed is None else verts_unposed + self.template_verts
-        return skinning(self._matrices(pose), verts, self.skin_indices, self.skin_weights)
+        return skinning(self._matrices(pose), verts, self.skin_indices, self.skin_weights) * self.global_scaling
 
     def unpose(self, verts_posed: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
         """Posed verts → DELTA from template (lbs.py:815-821)."""
         mat = self._matrices(pose)
-        return unskinning(mat, verts_posed, self.skin_indices, self.skin_weights) - self.template_verts
+        return (unskinning(mat, verts_posed / self.global_scaling, self.skin_indices, self.skin_weights)
+                - self.template_verts)
 
     def template_pose(self, pose: torch.Tensor) -> torch.Tensor:
         return self.pose(None, pose)

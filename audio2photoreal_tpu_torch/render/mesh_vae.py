@@ -13,11 +13,18 @@ RGB.  Components and their state-dict names follow the reference:
                      package fuses them into one block-diagonal conv)
 - ``decoder_view``   UNetViewDecoder (:721-739)
 - ``shadow_net`` / ``pose_to_shadow`` / ``upscale_net`` (:95-252)
+- ``cal`` / ``learn_blur`` / ``pixel_cal`` (:180-200), at ``n_cameras > 0``:
+                     the training forward's per-camera calibration
+                     (``render/calibration.py``)
 
 Static per-person assets ride in ``RendererAssets`` as non-persistent
 buffers: they move with ``.to(device)`` and stay out of the state_dict.
-Tensors are NCHW; vertex arrays [B, V, 3].  Inference only: the
-training-only calibration (``n_cameras > 0``) is not ported.
+Tensors are NCHW; vertex arrays [B, V, 3].  ``forward(training=True)`` is
+the training branch (:322-371): the GT-AO shadow drives the texture and the
+pose shadow is exposed for its distillation, the calibration runs on the
+texture and on the render, and the raster's inputs are detached, so the
+texture's gradient reaches it through the bilinear sampler alone.  The
+inference forward ignores the calibration modules.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch.nn as nn
 
 from audio2photoreal_tpu_torch.kernels.display_pack import finalize_display
 from audio2photoreal_tpu_torch.render.blocks import ConvBlock, ConvDownBlock, UpConvBlockDeep, UpscaleNet
+from audio2photoreal_tpu_torch.render.calibration import CalV5, CameraPixelBias, LearnableBlur
 from audio2photoreal_tpu_torch.render.face import FaceDecoderFrontal
 from audio2photoreal_tpu_torch.render.geometry import GeometryModule, compute_view_cos, project_points
 from audio2photoreal_tpu_torch.render.layers import Conv2dWNUB, LinearWN, reset_parameters, resize_bilinear, tile2d
@@ -44,10 +52,9 @@ from audio2photoreal_tpu_torch.render.unet import UNetWB
 
 @dataclass(frozen=True)
 class RendererConfig:
-    """The JAX package's RendererConfig (renderer.json), less two fields
-    that change no inference result: ``noise_std`` (the encoders' training
-    noise) and ``s2d_tail`` (a TPU layout switch); a bundle that names them
-    loads with them dropped (``render/assets.py:load_bundle_parts``)."""
+    """The JAX package's RendererConfig (renderer.json), less ``s2d_tail``
+    (a TPU layout switch); a bundle that names it loads with it dropped
+    (``render/assets.py:load_bundle_parts``)."""
 
     uv_size: int = 1024
     init_uv_size: int = 64
@@ -64,9 +71,10 @@ class RendererConfig:
     encoder_in_size: int = 512
     face_tex_size: int = 1024
     n_face_verts: int = 7306
+    noise_std: float = 1.0  # the posterior sample's noise scale (training)
     image_height: int = 1024
     image_width: int = 667
-    n_cameras: int = 0  # > 0: training-only calibration, not ported
+    n_cameras: int = 0  # > 0: the training forward's per-camera calibration modules
 
 
 class RendererAssets(nn.Module):
@@ -87,13 +95,24 @@ class RendererAssets(nn.Module):
                                  persistent=False)
 
 
+def draw_posterior_noise(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The standard-normal draw of a posterior sample: the one place the
+    encoders' training noise is drawn (tests replace it by JAX's draws)."""
+    return torch.randn(shape, generator=generator, device=device)
+
+
+def _posterior(mu: torch.Tensor, logvar: torch.Tensor, noise: Optional[torch.Tensor], noise_std: float):
+    """mu + exp(logvar)·ε·noise_std (mesh_vae_drivable.py:441-447), or mu."""
+    return mu if noise is None else mu + torch.exp(logvar) * noise * noise_std
+
+
 class BodyEncoder(nn.Module):
     """Unposed-verts UV → body embedding (reference Encoder :376-455)."""
 
     def __init__(self, cfg: RendererConfig):
         super().__init__()
         S = cfg.encoder_in_size
-        self.size = S
+        self.size, self.noise_std = S, cfg.noise_std
         self.verts_conv = ConvDownBlock(3, 8, S)
         plan = [16, 32, 32, 64, 128, 128]
         n_downs = int(math.log2(S // 4)) - 1  # verts_conv already halved once
@@ -105,14 +124,16 @@ class BodyEncoder(nn.Module):
         self.mu = LinearWN(cin * 4 * 4, cfg.n_embs)
         self.logvar = LinearWN(cin * 4 * 4, cfg.n_embs)
 
-    def forward(self, verts_unposed_uv: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, verts_unposed_uv: torch.Tensor, mask: torch.Tensor,
+                noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """``noise``: ε of the posterior sample; None → the mean."""
         x = resize_bilinear(verts_unposed_uv, (self.size, self.size)) * mask[None]
         x = self.verts_conv(x)
         for blk in self.joint_conv_blocks:
             x = blk(x)
         x = x.flatten(1)
-        mu = self.mu(x)
-        return {"embs": mu, "embs_mu": mu, "embs_logvar": 0.1 * self.logvar(x)}
+        mu, logvar = self.mu(x), 0.1 * self.logvar(x)
+        return {"embs": _posterior(mu, logvar, noise, self.noise_std), "embs_mu": mu, "embs_logvar": logvar}
 
 
 class FaceEncoder(nn.Module):
@@ -121,7 +142,7 @@ class FaceEncoder(nn.Module):
     def __init__(self, cfg: RendererConfig):
         super().__init__()
         S = cfg.encoder_in_size
-        self.size = S
+        self.size, self.noise_std = S, cfg.noise_std
         plan = [4, 8, 16, 32, 64, 128, 128]
         n_downs = int(math.log2(S // 4))
         blocks, cin = [], 3
@@ -134,7 +155,8 @@ class FaceEncoder(nn.Module):
         self.mu = LinearWN(512, cfg.n_face_embs)
         self.logvar = LinearWN(512, cfg.n_face_embs)
 
-    def forward(self, face_geom, face_tex, tex_cond_mask) -> Dict[str, torch.Tensor]:
+    def forward(self, face_geom, face_tex, tex_cond_mask,
+                noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         B = face_geom.shape[0]
         tex = resize_bilinear(face_tex, (self.size, self.size))
         x = (tex / 255.0 - 0.5) * tex_cond_mask[None]
@@ -142,8 +164,9 @@ class FaceEncoder(nn.Module):
             x = blk(x)
         geom_enc = self.geommod(face_geom.reshape(B, -1))
         joint = self.jointmod(torch.cat([x.flatten(1), geom_enc], dim=-1))
-        mu = self.mu(joint)
-        return {"face_embs": mu, "face_embs_mu": mu, "face_embs_logvar": 0.1 * self.logvar(joint)}
+        mu, logvar = self.mu(joint), 0.1 * self.logvar(joint)
+        return {"face_embs": _posterior(mu, logvar, noise, self.noise_std), "face_embs_mu": mu,
+                "face_embs_logvar": logvar}
 
 
 def _embs_plan(S0: int, enc_channels: int):
@@ -234,18 +257,18 @@ class UNetViewDecoder(nn.Module):
         self.unet = UNetWB(4, 3, cfg.uv_size, n_init_ftrs=cfg.view_unet_ftrs)
 
     def forward(self, geom_rec, tex_mean_rec, camera_pos, geo: GeometryModule) -> Dict[str, torch.Tensor]:
-        view_cos = compute_view_cos(geom_rec, geo.faces, camera_pos)
+        view_cos = compute_view_cos(geom_rec, geo.faces, camera_pos).detach()
         cond = torch.cat([geo.to_uv(view_cos[..., None]), tex_mean_rec], dim=1)
         return {"tex_view_rec": self.unet(cond), "cond_view": cond}
 
 
 class BodyAvatar(nn.Module):
-    """The drivable avatar, inference half (reference AutoEncoder :276-373)."""
+    """The drivable avatar (reference AutoEncoder :276-373)."""
+
+    CALIBRATION = ("cal", "learn_blur", "pixel_cal")  # built when n_cameras > 0
 
     def __init__(self, cfg: RendererConfig, assets: RendererAssets):
         super().__init__()
-        if cfg.n_cameras > 0:
-            raise NotImplementedError("the training-only calibration (n_cameras > 0) is not ported: see ROADMAP")
         c = cfg
         self.cfg = cfg
         self.assets = assets
@@ -263,9 +286,17 @@ class BodyAvatar(nn.Module):
         self.shadow_net = ShadowUNet(c.upscale_size, c.shadow_size, assets.ao_mean, biases=False)
         self.pose_to_shadow = PoseToShadow(104, c.upscale_size)
         self.upscale_net = UpscaleNet(6, out_channels=3, n_ftrs=16, size=c.uv_size)
+        if c.n_cameras > 0:
+            self.cal = CalV5(c.n_cameras)
+            self.learn_blur = LearnableBlur(c.n_cameras)
+            self.pixel_cal = CameraPixelBias(c.n_cameras, c.image_height, c.image_width)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Random weights from ``generator``; the calibration at identity."""
         reset_parameters(self, generator)
+        for name in self.CALIBRATION:
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters()
 
     # -- encode ---------------------------------------------------------- #
 
@@ -281,15 +312,26 @@ class BodyAvatar(nn.Module):
         """HQLP face codes → body-space face embeddings via the frozen face
         decoder + face encoder (render_codes.py:107-114 +
         mesh_vae_drivable.py:265-267)."""
-        face_dec = self.decoder_face(face_embs_hqlp)
+        face_dec = {k: v.detach() for k, v in self.decoder_face(face_embs_hqlp).items()}
         return self.encoder_face(face_dec["face_geom"], face_dec["face_tex"], self.assets.face_tex_mask)["face_embs"]
 
-    def encode(self, geom, lbs_motion, face_embs_hqlp) -> Dict[str, torch.Tensor]:
-        """(posed geometry, pose, HQLP face codes) → embeddings (:254-274)."""
+    def encode(self, geom, lbs_motion, face_embs_hqlp, posterior_noise: bool = False,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """(posed geometry, pose, HQLP face codes) → embeddings (:254-274).
+        No gradient reaches the unposed vertices or the frozen face
+        decoder's outputs.  ``posterior_noise``: the embeddings are posterior
+        samples, the body's and the face's ε two independent draws from
+        ``generator`` (as in the reference)."""
         a = self.assets
-        enc = self.encoder(a.geo.to_uv(a.lbs.unpose(geom, lbs_motion)), a.non_head_mask)
-        face_dec = self.decoder_face(face_embs_hqlp)
-        face_enc = self.encoder_face(face_dec["face_geom"], face_dec["face_tex"], a.face_tex_mask)
+        verts_unposed = a.lbs.unpose(geom, lbs_motion).detach()
+        face_dec = {k: v.detach() for k, v in self.decoder_face(face_embs_hqlp).items()}
+        eps_body = eps_face = None
+        if posterior_noise:
+            B, dev = geom.shape[0], geom.device
+            eps_body = draw_posterior_noise((B, self.cfg.n_embs), generator, dev)
+            eps_face = draw_posterior_noise((B, self.cfg.n_face_embs), generator, dev)
+        enc = self.encoder(a.geo.to_uv(verts_unposed), a.non_head_mask, eps_body)
+        face_enc = self.encoder_face(face_dec["face_geom"], face_dec["face_tex"], a.face_tex_mask, eps_face)
         return {**enc, **face_enc, "face_dec_preds": face_dec}
 
     # -- decode ---------------------------------------------------------- #
@@ -323,20 +365,25 @@ class BodyAvatar(nn.Module):
         embs: Optional[torch.Tensor] = None,
         face_embs_body: Optional[torch.Tensor] = None,
         encode: bool = True,
+        use_pose_shadow: bool = True,
+        ao: Optional[torch.Tensor] = None,  # [B, 1, S, S] (use_pose_shadow=False)
+        posterior_noise: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """The VIEW-INDEPENDENT half of a frame: encode (or the face-code
-        translation alone), ConvDecoder, LBS pose, the pose-driven shadow
-        and its seam pass.  Returns what ``render_view`` consumes."""
+        translation alone), ConvDecoder, LBS pose, the shadow (pose-driven,
+        or from the AO map ``ao``, as the training branch takes it) and its
+        seam pass.  Returns what ``render_view`` consumes."""
         preds: Dict[str, torch.Tensor] = {}
         if encode:
-            enc = self.encode(geom, lbs_motion, face_embs)
+            enc = self.encode(geom, lbs_motion, face_embs, posterior_noise, generator)
             embs, face_embs_body = enc["embs"], enc["face_embs"]
             preds.update(enc)
         elif face_embs_body is None and face_embs is not None:
             face_embs_body = self.face_codes_to_body_embs(face_embs)
         dec = self.decoder(lbs_motion, embs, face_embs_body, self.assets)
         geom_rec = self.assets.lbs.pose(dec["geom_delta_rec"], lbs_motion)
-        shadow = self.pose_to_shadow(lbs_motion)
+        shadow = self.pose_to_shadow(lbs_motion) if use_pose_shadow else self.shadow_net(ao)
         shadow_seamed = self.assets.seam_2k.apply(shadow["shadow_map"], 2)
         preds.update(geom=geom_rec, shadow_seamed=shadow_seamed, **dec, **shadow)
         return preds
@@ -377,14 +424,57 @@ class BodyAvatar(nn.Module):
         face_embs_body: Optional[torch.Tensor] = None,
         encode: bool = True,
         render_display: bool = False,
+        ao: Optional[torch.Tensor] = None,  # [B, 1, S, S] ambient occlusion (training)
+        cam_idx: Optional[torch.Tensor] = None,  # [B] int: the training calibration's cameras
+        training: bool = False,
+        posterior_noise: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
         """One frame batch end to end: ``decode_frame`` then, with cameras,
         ``render_view``.  ``render_display=True`` is the video path (rgb in
-        display [0, 255]); linear rgb is the default."""
+        display [0, 255]); linear rgb is the default.  ``training=True``
+        takes the training branch (``train_forward``), which encodes ``geom``
+        and needs ``ao``."""
+        if training:
+            return self.train_forward(lbs_motion, campos, geom, face_embs, ao, K, Rt, cam_idx, posterior_noise,
+                                      generator)
         preds = self.decode_frame(lbs_motion, geom, face_embs, embs, face_embs_body, encode)
         if K is not None and Rt is not None:
             view = self.render_view(preds, campos, K, Rt, render_display)
             preds.update(rgb=view["rgb"], tex_rec=view["tex_rec"], depth=view["depth"],
                          pix_to_face=view["pix_to_face"], tex_view_rec=view["tex_view_rec"],
                          cond_view=view["cond_view"])
+        return preds
+
+    def train_forward(self, lbs_motion, campos, geom, face_embs, ao, K=None, Rt=None, cam_idx=None,
+                      posterior_noise: bool = False,
+                      generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The training branch (mesh_vae_drivable.py:322-371): the encode of
+        ``geom``; the GT-AO shadow of ``ao`` drives the texture and
+        ``pose_shadow_map`` is the pose shadow for its distillation; with
+        ``cam_idx`` (and n_cameras > 0) ``cal`` calibrates the texture and
+        ``learn_blur`` / ``pixel_cal`` the linear render.  The projected
+        vertices are detached before the raster: visibility is not
+        differentiable, so the geometry trains through a loss on the
+        vertices and the texture through the sampler."""
+        a = self.assets
+        preds = self.decode_frame(lbs_motion, geom, face_embs, use_pose_shadow=False, ao=ao,
+                                  posterior_noise=posterior_noise, generator=generator)
+        preds["pose_shadow_map"] = self.pose_to_shadow(lbs_motion)["shadow_map"]
+        geom_rec = preds["geom"]
+        dec_view = self.decoder_view(geom_rec, preds["tex_mean_rec"], campos, a.geo)
+        tex_rec = self.forward_tex(preds["tex_mean_rec"], dec_view["tex_view_rec"], None,
+                                   shadow_seamed=preds["shadow_seamed"])
+        calibrate = self.cfg.n_cameras > 0 and cam_idx is not None
+        if calibrate:
+            tex_rec = self.cal(tex_rec, cam_idx)
+        preds.update(tex_rec=tex_rec, **dec_view)
+        if K is not None and Rt is not None:
+            pix, depth = project_points(geom_rec, K, Rt)
+            rgb, raster = render_mesh(pix.detach(), depth.detach(), a.geo.faces, a.geo.uv_coords, a.geo.uv_faces,
+                                      tex_rec, self.cfg.image_height, self.cfg.image_width)
+            if calibrate:
+                img = self.learn_blur(rgb.permute(0, 3, 1, 2), cam_idx) + self.pixel_cal(cam_idx)
+                rgb = img.permute(0, 2, 3, 1)
+            preds.update(rgb=rgb, depth=raster.depth, pix_to_face=raster.face_index)
         return preds

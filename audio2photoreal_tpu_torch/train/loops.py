@@ -1,4 +1,5 @@
-"""The train steps of the diffusion denoiser, the VQ codec and the guide LM.
+"""The train steps of the diffusion denoiser, the VQ codec, the guide LM and
+the codec avatar.
 
 Counterpart of ``audio2photoreal_tpu/train/loops.py``.  The diffusion step
 (``make_diffusion_train_step``; reference: training_loop.py:174-215 +
@@ -14,12 +15,15 @@ the forward.  The guide step (``make_guide_train_step``;
 train_guide.py:71-107): keyframes tokenised by the frozen codec, shifted
 right behind the start token, label-smoothed cross-entropy over the valid
 keyframes' tokens.  The VQ and guide steps update always, as the JAX
-package's do.
+package's do.  The avatar step (``avatar_train_step``; JAX
+train/loops.py:190-283): the BodyAvatar's training forward, masked L1 on
+the render + vertex L2 + KL + shadow distillation + the blur regulariser,
+skipped when not finite as the diffusion step is.
 
 Every random draw of a step comes from generators the caller seeds for that
 step: a CPU one (t, the guidance-dropout draws, one seed per dropout site)
 and one on the model's device (the diffusion noise; the VQ's k-means and
-dead-code rows).  Each step reads its metrics back to the host once.
+dead-code rows; the avatar's posterior noise).  Each step reads its metrics back to the host once.
 """
 
 from __future__ import annotations
@@ -183,3 +187,54 @@ def guide_train_step(state: TrainState, codec, batch: Dict[str, torch.Tensor],
                    audio_features=batch.get("audio_features"), keep_mask=keep_mask)
     loss, acc = guide_loss(logits, targets, valid)
     return _update(state, loss, {"acc": acc})
+
+
+def _kl(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
+    """KL(N(mu, σ²) ‖ N(0, 1)) with σ = exp(logvar), the mean over elements
+    (the posterior sample is mu + exp(logvar)·ε)."""
+    return 0.5 * (torch.exp(2 * logvar) + mu**2 - 1.0 - 2 * logvar).mean()
+
+
+def avatar_train_step(state: TrainState, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+                      kl_weight: float = 1e-3, geom_weight: float = 1.0, shadow_weight: float = 0.1,
+                      blur_reg_weight: float = 1e-3) -> Dict[str, float]:
+    """One BodyAvatar step (the JAX package's ``make_avatar_train_step``,
+    train/loops.py:190-283) -> metrics (loss, grad_norm, loss_rgb,
+    loss_geom, loss_kl, loss_shadow, loss_blur_reg, skipped_nonfinite).
+
+    The training forward (``BodyAvatar.train_forward``) with both posteriors
+    sampled from ``generator`` (on the model's device); the loss is the L1
+    of the linear render against ``image`` under ``image_mask`` (or, without
+    one, the raster's coverage), summed and divided by max(mask sum, 1)·3,
+    + the vertices' L2 + both posteriors' KL + the pose shadow's L2 to the
+    detached GT-AO shadow + LearnableBlur's regulariser.  A non-finite loss
+    or gradient norm leaves the state as it was.
+
+    batch: motion [B, 104], geom [B, V, 3], face_embs [B, Nf], ao [B, 1,
+    S, S], campos [B, 3], K [B, 3, 3], Rt [B, 3, 4], image [B, H, W, 3],
+    image_mask [B, H, W, 1] (optional), cam_idx [B] int."""
+    model = state.model
+    preds = model(batch["motion"], batch["campos"], geom=batch["geom"], face_embs=batch["face_embs"], K=batch["K"],
+                  Rt=batch["Rt"], ao=batch["ao"], cam_idx=batch["cam_idx"], training=True, posterior_noise=True,
+                  generator=generator)
+    mask = batch.get("image_mask")
+    if mask is None:
+        mask = (preds["pix_to_face"] >= 0)[..., None].float()
+    l_rgb = ((preds["rgb"] - batch["image"]).abs() * mask).sum() / torch.clamp(mask.sum(), min=1.0) / 3.0
+    l_geom = ((preds["geom"] - batch["geom"]) ** 2).mean()
+    l_kl = _kl(preds["embs_mu"], preds["embs_logvar"]) + _kl(preds["face_embs_mu"], preds["face_embs_logvar"])
+    l_shadow = ((preds["pose_shadow_map"] - preds["shadow_map"].detach()) ** 2).mean()
+    l_blur = model.learn_blur.reg(batch["cam_idx"])
+    loss = l_rgb + geom_weight * l_geom + kl_weight * l_kl + shadow_weight * l_shadow + blur_reg_weight * l_blur
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    with torch.no_grad():
+        parts = {"loss_rgb": l_rgb, "loss_geom": l_geom, "loss_kl": l_kl, "loss_shadow": l_shadow,
+                 "loss_blur_reg": l_blur}
+        values = torch.stack([loss.detach(), global_norm(state.grads()), *(v.detach() for v in parts.values())])
+        metrics = dict(zip(["loss", "grad_norm", *parts], values.cpu().tolist()))  # the step's one read-back
+    finite = math.isfinite(metrics["loss"]) and math.isfinite(metrics["grad_norm"])
+    if finite:
+        state.apply_gradients(metrics["grad_norm"])
+    metrics["skipped_nonfinite"] = float(not finite)
+    return metrics

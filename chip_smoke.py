@@ -192,14 +192,42 @@ exception and a nonzero exit.
    then ``generate`` of phase 8's pose model from the trained guide and VQ
    (2 clips, DDIM-50): the keyframes are the trained VQ's decode of the
    sampled tokens.
-24. checkpoint conversion: a reference-layout tree written from random
+24. avatar train parity: a full-width BodyAvatar (``RendererConfig()``,
+   ``n_cameras`` 4, random weights and calibration from ``--seed``), one
+   step at frame batch 2 (the identity camera among its cameras), the
+   posterior noise one numpy draw on both sides: the card step's raster
+   (the kernel) equal to ``rasterize_reference`` on the same inputs (face
+   ids and coverage; depth and UV within 1e-5); the CPU step, fed the
+   card's raster outputs, within 1e-5 relative on each loss part, 1e-4 of
+   each gradient's largest element, params after AdamW within 2 lr and
+   99.9% within 1e-6, the identity camera's calibration unmoved bit for
+   bit; the coverage flips the CPU's own vertices would give, printed; the
+   leaky ReLU slopes the CPU's own pre-activations would flip (the CPU step
+   replays the card's), at most 1e-6 of them.
+25. main path, avatar training: a full-width renderer bundle (``n_cameras``
+   4, synthetic assets at mesh_density 10) and 3 .npz batches of 4 frames,
+   each frame with its own camera of a 4-camera rig, the targets rendered
+   by a second random avatar, AO random; ``apps.train_avatar.train`` for 5
+   steps, resumed to 6 (one raster launch a step, no other kernel); one
+   frame x 4 cameras through ``load_body_renderer`` before and after (the
+   trained bundle renders its trained weights); steps/s over steps 2-4,
+   peak memory, first and last loss, one more step profiled (device ms of
+   the raster, the convolutions and GEMMs, the grid sampler's backward, the
+   rest; launches, idle share).
+26. checkpoint conversion: a reference-layout tree written from random
    full-width modules (pose denoiser, guide, VQ; ``args.json``, ``"net"``,
-   ``"model_state_dict"``, 1998 null rows, reference-only keys), converted
-   by ``convert_person``; ``generate`` from the converted dirs equals
+   ``"model_state_dict"``, 1998 null rows, reference-only keys) and a
+   person's avatar (a reference-layout ``static_assets.pt`` at UV 1024 /
+   2048, a ``body_dec.ckpt`` of a random full-width avatar with a trained
+   AutoEncoder's calibration and asset buffers beside it), converted by
+   ``convert_person``; ``generate`` from the converted dirs equals
    ``generate`` from the source modules' dirs bit for bit (2 clips,
-   DDIM-50, same seed).
+   DDIM-50, same seed), and the converted avatar's bundle renders one frame
+   on the card bit for bit as the source avatar does (both on cuDNN's
+   deterministic algorithms).
 
-Then one line with every kernel's numbers (the f32 attention rows' bound
+Then one line with every kernel's numbers (the raster's launches by path:
+the render and the avatar trainer; the f32 attention rows' bound
 there is the 3xTF32 one, the arithmetic they do; the bf16 rows at the pose
 trainer's B64 600 x 2000 Dh 64 shape), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/.
@@ -209,6 +237,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -2883,11 +2912,23 @@ def phase_convert_reference_tree(seed: int, smi: str) -> None:
     ...}`` with 1998 null rows, rotary tables and vq-wav2vec's other parts
     beside the denoiser's keys), converted by ``convert_person``; then
     ``generate`` on the card from the converted dirs and from the source
-    modules' own dirs, same seed: results equal bit for bit."""
+    modules' own dirs, same seed: results equal bit for bit.  The tree also
+    holds a person's avatar at full width (``ca_body/data/<person>/``: a
+    reference-layout ``static_assets.pt`` at UV 1024 / 2048 on the
+    mesh_density=10 synthetic person, a ``body_dec.ckpt`` of a random
+    ``RendererConfig()`` avatar under the reference's names, with a trained
+    AutoEncoder's calibration and asset buffers beside them): its bundle,
+    through ``load_body_renderer``, renders one frame on the card bit for bit
+    as the source avatar on the converted assets does."""
+    import dataclasses
+
     import numpy as np
     import torch
 
-    from audio2photoreal_tpu_torch.apps.convert_checkpoint import convert_person
+    from audio2photoreal_tpu_torch.apps.convert_checkpoint import convert_person, frontal_rig
+    from audio2photoreal_tpu_torch.apps.render_pipeline import BodyRenderer, load_body_renderer
+    from audio2photoreal_tpu_torch.render.assets import convert_static_assets, reference_static_assets
+    from audio2photoreal_tpu_torch.render.mesh_vae import RendererConfig
     from audio2photoreal_tpu_torch.apps.generate import MODEL_FILE, generate
     from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, save_config
     from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
@@ -2934,6 +2975,19 @@ def phase_convert_reference_tree(seed: int, smi: str) -> None:
     gsd["null_cond_embed"] = gsd["null_cond_embed"][:, :1998].clone()
     os.makedirs(os.path.join(gd, "checkpoints"))
     torch.save({"model_state_dict": gsd}, os.path.join(gd, "checkpoints", "iter-0100000.pt"))
+    rcfg = RendererConfig(**AVATAR_RENDERER)
+    avatar_dir = os.path.join(tree, "ca_body", "data", person)
+    os.makedirs(avatar_dir)
+    sa = os.path.join(avatar_dir, "static_assets.pt")
+    torch.save(reference_static_assets(rcfg, seed=seed, mesh_density=10), sa)
+    real_assets = convert_static_assets(sa, rcfg)
+    avatar = _avatar_model(dataclasses.replace(rcfg, n_cameras=AVATAR_CAMERAS), real_assets, seed + 53)
+    avatar_sd = {k: v for k, v in avatar.state_dict().items() if k.split(".")[0] not in avatar.CALIBRATION}
+    # a trained AutoEncoder's file: its calibration and asset buffers beside
+    # the parameters, which the converter drops as JAX's does
+    torch.save({"model_state_dict": dict(avatar.state_dict(), **_reference_avatar_buffers(rcfg, real_assets))},
+               os.path.join(avatar_dir, "body_dec.ckpt"))
+    del avatar
     write_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     conv = convert_person(tree, person, out)
@@ -2946,17 +3000,389 @@ def phase_convert_reference_tree(seed: int, smi: str) -> None:
                         output_dir=os.path.join(WORK, f"samples_{which}"))
         results[which] = np.load(path, allow_pickle=True).item()
     s, c = results["source"], results["converted"]
+    rng = np.random.RandomState(seed + 53)
+    pose = (rng.randn(1, 104) * 0.3).astype(np.float32)
+    face = (rng.randn(1, rcfg.n_face_embs) * 0.3).astype(np.float32)
+    # cuDNN's default algorithms may differ in the last bit between two
+    # renderer instances (a pixel a frame off by one count, PERF.md §6):
+    # the comparison of the converter runs on its deterministic ones
+    torch.backends.cudnn.deterministic = True
+    try:
+        frames = {
+            "converted": load_body_renderer(conv["renderer"], frame_batch=1,
+                                            device="cuda").render_sequence_multicam(pose, face),
+            "source": BodyRenderer(rcfg, real_assets, avatar_sd,
+                                   frontal_rig(real_assets.lbs.template_verts[0], rcfg), frame_batch=1,
+                                   device="cuda").render_sequence_multicam(pose, face),
+        }
+    finally:
+        torch.backends.cudnn.deterministic = False
     checks = {
-        "families": sorted(conv) == ["c1_pose", "c1_vq", "guide_c1_pose"],
+        "families": sorted(conv) == ["c1_pose", "c1_vq", "guide_c1_pose", "renderer"],
+        "avatar_frame_bit_equal": np.array_equal(frames["converted"], frames["source"]),
+        "avatar_frame_covers": bool(0.0 < frames["converted"].any(-1).mean() < 0.9),
         "motions_bit_equal": np.array_equal(s["motions"], c["motions"]),
         "keyframes_bit_equal": np.array_equal(s["keyframes"], c["keyframes"]),
         "motions_finite": bool(np.isfinite(c["motions"]).all()),
     }
     emit("convert_reference_tree", nvidia_smi=smi, families=sorted(conv), write_s=write_s, convert_s=convert_s,
          ddim_steps=CONVERT_DDIM, motions_shape=list(c["motions"].shape),
-         max_abs_diff=float(np.abs(s["motions"] - c["motions"]).max()), checks=checks)
+         max_abs_diff=float(np.abs(s["motions"] - c["motions"]).max()),
+         avatar_frame_shape=list(frames["converted"].shape),
+         avatar_frame_coverage=float(frames["converted"].any(-1).mean()),
+         avatar_faces=int(real_assets.geo.faces.shape[0]), checks=checks)
     if not all(checks.values()):
-        raise AssertionError(f"generate from the converted tree differs from the source modules': {checks}")
+        raise AssertionError(f"the converted tree's generate or render differs from the source modules': {checks}")
+
+
+def _reference_avatar_buffers(cfg, assets) -> dict:
+    """Broadcast stand-ins, at the shapes of ``assets``, for the buffers a
+    ca_body AutoEncoder (mesh_vae_drivable.py) keeps in its state dict: the
+    texture mean, masks, AO mean, and the geometry, seam and LBS modules
+    under each submodule that holds them."""
+    import torch
+
+    S, U, V = cfg.uv_size, cfg.upscale_size, assets.lbs.template_verts.shape[1]
+    geo = {"vi": tuple(assets.geo.faces.shape), "vt": tuple(assets.geo.uv_coords.shape),
+           "vti": tuple(assets.geo.uv_faces.shape), "v2uv": tuple(assets.geo.v2uv.shape),
+           "index_image": (S, S, 3), "bary_image": (S, S, 3), "face_index_image": (S, S)}
+    seam = {"dst_ij": (500, 2), "src_ij": (500, 2), "uvs": (S, S, 2), "weights": (S, S)}
+    shapes = {"tex_mean": (1, 3, U, U), "face_cond_mask": (1, 1, S // 16, S // 16), "meye_mask": (1, 1, U, U),
+              "encoder.mask": (1, 1, cfg.encoder_in_size, cfg.encoder_in_size),
+              "decoder.pose_cond_mask": (1, 98, S // 16, S // 16), "shadow_net.ao_mean": (1, 1, 256, 256),
+              "lbs_fn.lbs_template_verts": (V, 3), "lbs_fn.lbs_scale": (1, 3), "lbs_fn.global_scaling": (1,)}
+    for owner in ("", "decoder.", "decoder_view.", "encoder."):
+        shapes.update({f"{owner}geo_fn.{k}": v for k, v in geo.items()})
+    for owner in ("seam_sampler", "seam_sampler_2k", "decoder.seam_sampler", "decoder_view.seam_sampler"):
+        shapes.update({f"{owner}.{k}": v for k, v in seam.items()})
+    return {k: torch.zeros(()).expand(v) for k, v in shapes.items()}
+
+
+AVATAR_CAMERAS = 4  # the synthetic capture rig of the avatar trainer's phases
+AVATAR_ANGLES = (-30.0, 0.0, 20.0, 45.0)  # its cameras about the body's up axis, degrees
+AVATAR_LR = 1e-3  # apps/train_avatar.py's default, the JAX CLI's
+AVATAR_PARITY_BATCH, AVATAR_TRAIN_BATCH = 2, 4  # frame batches
+AVATAR_TRAIN_STEPS, AVATAR_FILES = 5, 3  # then resumed to AVATAR_TRAIN_STEPS + 1; .npz frame batches
+AVATAR_REL_TOL = 1e-5  # each loss part, card vs CPU, relative
+AVATAR_SLOPE_FLIP_SHARE = 1e-6  # most leaky ReLU slopes the CPU's own pre-activations may flip
+AVATAR_RENDERER = {}  # RendererConfig fields over its defaults (none: full width)
+
+
+def _avatar_cfg():
+    from audio2photoreal_tpu_torch.render.mesh_vae import RendererConfig
+
+    return RendererConfig(**{**AVATAR_RENDERER, "n_cameras": AVATAR_CAMERAS})
+
+
+def _avatar_model(cfg, assets, seed: int):
+    """A BodyAvatar with random weights from ``seed``: biases too (else the
+    posteriors sit at N(0, 1) and their KL is rounding), the calibration
+    off identity."""
+    import torch
+
+    from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar
+
+    model = BodyAvatar(cfg, assets)
+    g = torch.Generator().manual_seed(seed)
+    model.reset_parameters(g)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("bias") and n.split(".")[0] not in model.CALIBRATION:
+                p.add_(torch.randn(p.shape, generator=g) * 0.1)
+        for p, scale in ((model.cal.weight, 0.05), (model.cal.bias, 2.0), (model.learn_blur.weights, 1.0),
+                         (model.pixel_cal.bias, 2.0)):
+            p.add_(torch.randn(p.shape, generator=g) * scale)
+    return model
+
+
+def _avatar_frames(assets, cams: dict, cam_idx, rng, cfg) -> dict:
+    """A frame batch (numpy, the port's layout: ao [B, 1, S, S]): frame b
+    seen by camera ``cam_idx[b]``, its geometry the template posed by a
+    random pose with a random offset, random face codes, AO and image."""
+    import numpy as np
+    import torch
+
+    B = len(cam_idx)
+    names = list(cams)
+    motion = (rng.randn(B, 104) * 0.3).astype(np.float32)
+    offset = (0.01 * rng.randn(*assets.lbs.template_verts.shape[1:])).astype(np.float32)
+    dev = assets.lbs.template_verts.device
+    with torch.no_grad():
+        geom = assets.lbs.pose(torch.from_numpy(offset)[None].to(dev), torch.from_numpy(motion).to(dev)).cpu().numpy()
+    pick = lambda k: np.stack([np.asarray(getattr(cams[names[i]], k), np.float32) for i in cam_idx])  # noqa: E731
+    return {"motion": motion, "geom": geom, "face_embs": (rng.randn(B, cfg.n_face_embs) * 0.3).astype(np.float32),
+            "ao": rng.rand(B, 1, cfg.shadow_size, cfg.shadow_size).astype(np.float32),
+            "campos": pick("campos"), "K": pick("K"), "Rt": pick("Rt"),
+            "image": (rng.rand(B, cfg.image_height, cfg.image_width, 3) * 100).astype(np.float32),
+            "cam_idx": np.asarray(cam_idx, np.int64)}
+
+
+def avatar_step_parity(model_cpu, batch: dict, noise, lr: float) -> dict:
+    """One ``avatar_train_step`` from the same weights on the card (the
+    raster kernel) and on the CPU (plain versions), the posterior noise
+    ``noise`` (body, face; numpy) drawn on both.  The card step's raster is
+    held to ``rasterize_reference`` on the same inputs (run on the card);
+    the CPU step then takes the card's discrete decisions, so that a value
+    differing by f32 rounding cannot flip one between the two and decide
+    the gradient bar: the raster's outputs (an edge pixel), and the slope
+    of every leaky ReLU (a pre-activation within rounding of 0; the
+    avatar's untied per-pixel biases carry such a flip's gradient whole).
+    The flips the CPU's own vertices and pre-activations would give are
+    counted.  -> the numbers and the checks (loss parts, gradients, params
+    after AdamW, the identity camera, the raster)."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from audio2photoreal_tpu_torch.core.config import TrainConfig
+    from audio2photoreal_tpu_torch.kernels import launch_counts, raster
+    from audio2photoreal_tpu_torch.render import mesh_vae, rasterizer
+    from audio2photoreal_tpu_torch.train.loops import avatar_train_step
+    from audio2photoreal_tpu_torch.train.state import TrainState
+
+    real_draw, real_rasterize, real_lrelu = mesh_vae.draw_posterior_noise, rasterizer.rasterize, F.leaky_relu
+    seen = {"slopes": [], "slope_flips": 0}
+
+    def draw(shape, generator, device):
+        queue = seen.setdefault("noise", list(noise))
+        return torch.from_numpy(queue.pop(0)).to(device)
+
+    def recording(pix, depth, faces, height, width, face_uv=None, emit_barys=None):
+        if pix.device.type == "cuda":
+            out = real_rasterize(pix, depth, faces, height, width, face_uv, emit_barys)
+            seen["card"] = (pix, depth, faces, height, width, face_uv, out)
+            return out
+        seen["cpu_pix"] = (pix, depth)
+        return type(seen["card"][-1])(*(t.cpu() if t is not None else None for t in seen["card"][-1]))
+
+    def slopes(x, negative_slope=0.01, inplace=False):
+        """The card's leaky ReLU slopes, recorded, then replayed in call order."""
+        if x.device.type == "cuda":
+            seen["slopes"].append((x > 0).detach())
+            return real_lrelu(x, negative_slope, inplace)
+        keep = seen["slopes"][seen.setdefault("replayed", 0)].cpu()
+        seen["replayed"] += 1
+        seen["slope_flips"] += int(((x > 0) != keep).sum())
+        return torch.where(keep, x, x * negative_slope)
+
+    out, secs = {}, {}
+    mesh_vae.draw_posterior_noise, rasterizer.rasterize, F.leaky_relu = draw, recording, slopes
+    try:
+        for device, model in (("cuda", copy.deepcopy(model_cpu).cuda()), ("cpu", model_cpu)):
+            seen.pop("noise", None)
+            state = TrainState(model, TrainConfig(lr=lr))
+            before = launch_counts[raster.NAME]
+            t0 = time.perf_counter()
+            metrics = avatar_train_step(state, {k: torch.from_numpy(v).to(device) for k, v in batch.items()})
+            secs[device] = time.perf_counter() - t0
+            grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                     for n, p in model.named_parameters()}
+            params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+            out[device] = (metrics, grads, params, launch_counts[raster.NAME] - before)
+    finally:
+        mesh_vae.draw_posterior_noise, rasterizer.rasterize, F.leaky_relu = real_draw, real_rasterize, real_lrelu
+    pix, depth, faces, H, W, face_uv, got = seen["card"]
+    want = raster.rasterize_reference(pix, depth, faces, H, W, face_uv, emit_barys=False)
+    cov = got.face_index >= 0
+    cpu_pix, cpu_depth = (t.cuda() for t in seen["cpu_pix"])
+    own = raster.rasterize_reference(cpu_pix, cpu_depth, faces, H, W, face_uv, emit_barys=False)
+    (mg, gg, pg, lg), (mc, gc, pc, lc) = out["cuda"], out["cpu"]
+    parts = ("loss", "loss_rgb", "loss_geom", "loss_kl", "loss_shadow", "loss_blur_reg")
+    loss_rel = {k: abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-30) for k in parts}
+    grad_rel = {n: (gg[n] - gc[n]).abs().max().item() / max(gc[n].abs().max().item(), 1e-30) for n in gc}
+    worst = max(grad_rel, key=grad_rel.get)
+    d = torch.cat([(pg[n] - pc[n]).abs().flatten() for n in pc])
+    ident = model_cpu.cal.identity_camera
+    numbers = dict(
+        batch=int(batch["motion"].shape[0]), cam_idx=batch["cam_idx"].tolist(), losses_gpu={k: mg[k] for k in parts},
+        losses_cpu={k: mc[k] for k in parts}, loss_rel_err=loss_rel, grad_norm_gpu=mg["grad_norm"],
+        grad_norm_cpu=mc["grad_norm"], grad_max_rel_err=grad_rel[worst], grad_worst_tensor=worst,
+        grads_compared=len(gc), param_max_abs_diff=d.max().item(),
+        param_share_within_1e6=(d <= 1e-6).float().mean().item(),
+        raster_coverage=cov.float().mean().item(), raster_face_ids_equal=bool(torch.equal(got.face_index,
+                                                                                         want.face_index)),
+        raster_depth_max_abs_err=(got.depth[cov] - want.depth[cov]).abs().max().item() if cov.any() else 0.0,
+        raster_uv_max_abs_err=(got.uv[cov] - want.uv[cov]).abs().max().item() if cov.any() else 0.0,
+        cpu_vertices_coverage_flips=int(((own.face_index >= 0) != cov).sum().item()),
+        leaky_relu_calls=len(seen["slopes"]), leaky_relu_slopes=sum(m.numel() for m in seen["slopes"]),
+        cpu_preactivation_slope_flips=seen["slope_flips"],
+        raster_launches_gpu=lg, raster_launches_cpu=lc, gpu_s=secs["cuda"], cpu_s=secs["cpu"])
+    checks = {
+        "losses": max(loss_rel.values()) <= AVATAR_REL_TOL,
+        "gradients": grad_rel[worst] <= 1e-4 and sorted(gg) == sorted(gc),
+        "params_within_2lr": d.max().item() <= 2 * lr,
+        "params_999_within_1e6": numbers["param_share_within_1e6"] >= 0.999,
+        "identity_camera_unmoved": all(torch.equal(p[f"cal.{k}"][ident], getattr(model_cpu.cal, k)[ident].detach())
+                                       for p in (pg, pc) for k in ("weight", "bias")),
+        "identity_camera_gradient_zero": not gg["cal.weight"][ident].any() and not gg["cal.bias"][ident].any(),
+        "raster_face_ids_and_coverage": numbers["raster_face_ids_equal"],
+        "raster_depth_uv": max(numbers["raster_depth_max_abs_err"], numbers["raster_uv_max_abs_err"]) <= RASTER_TOL,
+        "raster_launched_once_on_the_card": lg == 1 and lc == 0,
+        "slopes_replayed": seen.get("replayed") == len(seen["slopes"]) > 0,
+        "slope_flips_rare": seen["slope_flips"] <= AVATAR_SLOPE_FLIP_SHARE * numbers["leaky_relu_slopes"],
+        "finite": all(map(math.isfinite, (mg["loss"], mc["loss"], mg["grad_norm"]))),
+    }
+    return dict(numbers=numbers, checks=checks)
+
+
+def phase_avatar_train_parity(seed: int) -> None:
+    """One deterministic avatar step at full width (``RendererConfig()``,
+    ``n_cameras`` 4), frame batch 2 (the identity camera among its
+    cameras), card against CPU (``avatar_step_parity``)."""
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets, synthetic_rig
+
+    cfg = _avatar_cfg()
+    t0 = time.perf_counter()
+    assets = make_synthetic_assets(cfg, seed=seed, mesh_density=10)
+    model = _avatar_model(cfg, assets, seed + 60)
+    cams = synthetic_rig((0.0, 0.0, 1.0), cfg.image_height, cfg.image_width, angles=AVATAR_ANGLES)
+    rng = np.random.RandomState(seed + 60)
+    batch = _avatar_frames(assets, cams, [0, 2][:AVATAR_PARITY_BATCH], rng, cfg)
+    noise = [rng.randn(AVATAR_PARITY_BATCH, n).astype(np.float32) for n in (cfg.n_embs, cfg.n_face_embs)]
+    setup_s = time.perf_counter() - t0
+    res = avatar_step_parity(model, batch, noise, AVATAR_LR)
+    emit("avatar_train_parity", uv=cfg.uv_size, upscale=cfg.upscale_size, image=[cfg.image_height, cfg.image_width],
+         n_cameras=cfg.n_cameras, faces=int(assets.geo.faces.shape[0]), lr=AVATAR_LR, setup_s=setup_s,
+         **res["numbers"], checks=res["checks"])
+    if not all(res["checks"].values()):
+        raise AssertionError(f"card and CPU disagree on the avatar step: {res['checks']}")
+
+
+def _profile_avatar_step(state, batch) -> dict:
+    """One more avatar step under torch.profiler: device ms by kernel group
+    (the raster, convolutions and GEMMs, the grid sampler's backward, the
+    rest), idle share, launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio2photoreal_tpu_torch.train.loops import avatar_train_step
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        avatar_train_step(state, batch, torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    per, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            launches += e.count
+    total = sum(per.values())
+    if total == 0.0:
+        raise AssertionError("torch.profiler recorded no device time")
+    conv_words = ("conv", "implicit_gemm", "cudnn", "xmma", "wgrad", "dgrad", "fprop", "gemm", "winograd", "fft")
+    raster_ms = sum(v for k, v in per.items() if "raster" in k)
+    conv_ms = sum(v for k, v in per.items() if "raster" not in k and any(w in k.lower() for w in conv_words))
+    grid_bwd_ms = sum(v for k, v in per.items() if "grid_sampler_2d_backward" in k)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    return dict(profiled_wall_ms=wall_ms, device_ms=total, device_idle_share=1.0 - total / wall_ms,
+                device_launches=launches, raster_ms=raster_ms, raster_share=raster_ms / total,
+                conv_gemm_ms=conv_ms, grid_sampler_backward_ms=grid_bwd_ms,
+                other_ms=total - raster_ms - conv_ms - grid_bwd_ms, top_kernels_ms=[[k[:90], v] for k, v in top])
+
+
+def phase_main_path_train_avatar(seed: int, smi: str) -> int:
+    """``apps/train_avatar.py:train`` on a full-width renderer bundle
+    (``n_cameras`` 4, synthetic assets at mesh_density 10) and
+    ``AVATAR_FILES`` .npz batches of 4 frames, each frame with its own
+    camera; the targets (image, mask, geometry) rendered by a second random
+    avatar, AO random.  ``AVATAR_TRAIN_STEPS`` steps, then resumed for one
+    more; then one frame x 4 cameras rendered through ``load_body_renderer``
+    before and after.  Steps/s over steps 2-4, one more step profiled.
+    -> the raster's launches on the trainer's path."""
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.apps import train_avatar
+    from audio2photoreal_tpu_torch.apps.render_pipeline import load_body_renderer
+    from audio2photoreal_tpu_torch.kernels import launch_counts, raster
+    from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets, save_renderer_bundle, synthetic_rig
+    from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar
+
+    cfg = _avatar_cfg()
+    bundle, data = os.path.join(WORK, "avatar_bundle"), os.path.join(WORK, "avatar_frames")
+    for d in (bundle, data):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    assets = make_synthetic_assets(cfg, seed=seed, mesh_density=10)
+    cams = synthetic_rig((0.0, 0.0, 1.0), cfg.image_height, cfg.image_width, angles=AVATAR_ANGLES)
+    student = _avatar_model(cfg, assets, seed + 61).state_dict()
+    save_renderer_bundle(bundle, cfg, {k: v for k, v in student.items()
+                                       if k.split(".")[0] not in BodyAvatar.CALIBRATION}, cams,
+                         seed=seed, mesh_density=10)
+    teacher = _avatar_model(cfg, assets, seed + 62).cuda().eval()
+    rng = np.random.RandomState(seed + 61)
+    B = AVATAR_TRAIN_BATCH
+    for f in range(AVATAR_FILES):
+        fb = _avatar_frames(assets, cams, [(f * B + k) % AVATAR_CAMERAS for k in range(B)], rng, cfg)
+        t = {k: torch.from_numpy(v).cuda() for k, v in fb.items()}
+        with torch.no_grad():  # the teacher's posed geometry and linear render are the targets
+            preds = teacher(t["motion"], t["campos"], geom=t["geom"], face_embs=t["face_embs"], K=t["K"], Rt=t["Rt"])
+        np.savez(os.path.join(data, f"frames_{f:03d}.npz"), motion=fb["motion"], geom=preds["geom"].cpu().numpy(),
+                 face_embs=fb["face_embs"], ao=fb["ao"].transpose(0, 2, 3, 1), campos=fb["campos"], K=fb["K"],
+                 Rt=fb["Rt"], image=preds["rgb"].cpu().numpy(),
+                 image_mask=(preds["pix_to_face"] >= 0)[..., None].float().cpu().numpy(),
+                 cam_idx=fb["cam_idx"].astype(np.int32))
+    del teacher, preds, t
+    pose = (rng.randn(1, 104) * 0.3).astype(np.float32)
+    face = (rng.randn(1, cfg.n_face_embs) * 0.3).astype(np.float32)
+    untrained = load_body_renderer(bundle, frame_batch=1, device="cuda").render_sequence_multicam(pose, face)
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts.clear()
+    timings, resumed = {}, {}
+    t0 = time.perf_counter()
+    train_avatar.train(bundle, data, num_steps=AVATAR_TRAIN_STEPS, lr=AVATAR_LR, save_interval=AVATAR_TRAIN_STEPS,
+                       seed=seed, device="cuda", timings=timings)
+    train_s = time.perf_counter() - t0
+    state = train_avatar.train(bundle, data, num_steps=AVATAR_TRAIN_STEPS + 1, lr=AVATAR_LR,
+                               save_interval=AVATAR_TRAIN_STEPS, seed=seed, device="cuda", timings=resumed)
+    torch.cuda.synchronize()
+    raster_launches = launch_counts[raster.NAME]
+    other_launches = sum(launch_counts.values()) - raster_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    logged = [json.loads(line) for line in open(os.path.join(bundle, train_avatar.LOG_DIR, "log.jsonl"))]
+    steady = timings["step_s"][1:4]
+    saved = torch.load(os.path.join(bundle, "model.pt"), map_location="cpu", weights_only=True)
+    trained = load_body_renderer(bundle, frame_batch=1, device="cuda").render_sequence_multicam(pose, face)
+    steps = AVATAR_TRAIN_STEPS + 1
+    checks = {
+        "steps": state.step == steps and len(timings["step_s"]) == AVATAR_TRAIN_STEPS
+        and len(resumed["step_s"]) == 1,
+        "losses_finite": [r["step"] for r in logged] == [0, AVATAR_TRAIN_STEPS - 1, steps - 1] and all(
+            np.isfinite(r["loss"]) and r["skipped_nonfinite"] == 0 for r in logged),
+        "checkpoints": sorted(os.listdir(os.path.join(bundle, train_avatar.CKPT_DIR)))
+        == [f"step_{s:08d}.pt" for s in (AVATAR_TRAIN_STEPS, steps)],
+        "model_pt_is_the_trained_state": all(torch.equal(saved[k], v.cpu()) for k, v in
+                                             state.model.state_dict().items()),
+        "raster_launches": raster_launches == steps,
+        "no_other_kernel_launches": other_launches == 0,
+        "trained_render_differs": trained.shape == untrained.shape
+        == (1, cfg.image_height, AVATAR_CAMERAS * cfg.image_width, 3) and not np.array_equal(trained, untrained),
+        "render_covers": bool(0.02 <= trained.any(-1).mean() <= 0.9),
+    }
+    prof = _profile_avatar_step(state, train_avatar.load_frame_batch(os.path.join(data, "frames_000.npz"), "cuda"))
+    emit("main_path_train_avatar", nvidia_smi=smi, frame_batch=B, steps=steps, files=AVATAR_FILES,
+         n_cameras=cfg.n_cameras, uv=cfg.uv_size, upscale=cfg.upscale_size, image=[cfg.image_height, cfg.image_width],
+         faces=int(assets.geo.faces.shape[0]), lr=AVATAR_LR, setup_s=setup_s, train_s=train_s,
+         step_s=timings["step_s"], resumed_step_s=resumed["step_s"], steady_step_ms=1e3 * sum(steady) / len(steady),
+         avatar_train_steps_per_s=len(steady) / sum(steady), peak_memory_gb=peak_gb,
+         first_loss=logged[0]["loss"], last_loss=logged[-1]["loss"], losses=[r["loss"] for r in logged],
+         kernel_launches={raster.NAME: raster_launches}, **prof,
+         device_idle_share_of_steady_step=1.0 - prof["device_ms"] / (1e3 * sum(steady) / len(steady)),
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"main path (avatar training) checks failed: {checks}")
+    return raster_launches
 
 
 def main() -> None:
@@ -2999,6 +3425,8 @@ def main() -> None:
     phase_vq_train_parity(args.seed)
     phase_guide_train_parity(args.seed)
     phase_main_path_train_vq_guide(args.seed, smi)
+    phase_avatar_train_parity(args.seed)
+    train_avatar = phase_main_path_train_avatar(args.seed, smi)
     phase_convert_reference_tree(args.seed, smi)
 
     import torch
@@ -3045,7 +3473,8 @@ def main() -> None:
          "plain_ms": bf16["bwd_plain_ms_at_plain_B"], "library_ms": bf16["bwd_library_ms"],
          "bound_ms": bf16["bwd_bound_ms"], "bound_by": bf16["bwd_bound_by"]},
         {"name": raster.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/raster.cu",
-         "replaces": "audio2photoreal_tpu/ops/pallas_raster.py:143", "launches": launches[raster.NAME],
+         "replaces": "audio2photoreal_tpu/ops/pallas_raster.py:143", "launches": launches[raster.NAME] + train_avatar,
+         "launches_by_path": {"render": launches[raster.NAME], "train_avatar": train_avatar},
          "shape": [ras[k] for k in ("B", "H", "W", "faces")], "graph_ms": ras["graph_ms"],
          **{k: ras[k] for k in keys}},
         {"name": display_pack.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/display_pack.cu",

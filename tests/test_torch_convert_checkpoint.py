@@ -20,6 +20,7 @@ import json
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -160,13 +161,38 @@ def test_a_key_no_port_module_has_raises(tree, tmp_path):
         convert_checkpoint.convert_diffusion_checkpoint(path, str(tmp_path / "out"))
 
 
-def test_convert_person_raises_on_an_avatar_before_writing(tree, tmp_path):
+def test_convert_person_converts_the_avatar(tree, tmp_path):
+    """A tree with ``ca_body/data/<person>/`` converts the avatar into
+    ``renderer``: ``body_dec.ckpt``'s tensors under their names (a
+    full-width state dict of broadcast zeros: names and shapes are what the
+    strict load checks), ``static_assets.pt`` copied, the cameras of
+    ``assets/render_defaults_<person>.pth`` beside ``checkpoints/``."""
+    from tests.test_torch_convert_avatar import SMALL
+
+    from audio2photoreal_tpu_torch.render.assets import (load_render_defaults, make_synthetic_assets,
+                                                         reference_static_assets)
+    from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar, RendererConfig
+
     root = str(tmp_path / "checkpoints")
     shutil.copytree(tree, root)
     avatar = os.path.join(root, "ca_body", "data", PERSON)
     os.makedirs(avatar)
-    open(os.path.join(avatar, "body_dec.ckpt"), "wb").close()
-    out = str(tmp_path / "out")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        convert_checkpoint.convert_person(root, PERSON, out)
-    assert not os.path.exists(out)
+    torch.save(reference_static_assets(RendererConfig(**SMALL)), os.path.join(avatar, "static_assets.pt"))
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in BodyAvatar(RendererConfig(), make_synthetic_assets(
+            RendererConfig(**SMALL))).state_dict().items()}
+    sd = {k: torch.zeros(()).expand(s) for k, s in shapes.items()}
+    torch.save({"model_state_dict": sd}, os.path.join(avatar, "body_dec.ckpt"))
+    rd = str(tmp_path / "assets" / f"render_defaults_{PERSON}.pth")
+    os.makedirs(os.path.dirname(rd))
+    torch.save({"400029": {"K": torch.eye(3), "Rt": torch.eye(3, 4)}}, rd)
+    out = convert_checkpoint.convert_person(root, PERSON, str(tmp_path / "out"))
+    assert set(out) == {"c1_pose", "c1_face", "c1_vq", "guide_c1_pose", "renderer"}
+    got = _model(out["renderer"])
+    assert {k: v.shape for k, v in got.items()} == shapes and not any(v.any() for v in got.values())
+    with open(os.path.join(avatar, "static_assets.pt"), "rb") as a, \
+            open(os.path.join(out["renderer"], "static_assets.pt"), "rb") as b:
+        assert a.read() == b.read()
+    cams = np.load(os.path.join(out["renderer"], "cameras.npz"))
+    assert list(cams["names"]) == ["400029"]
+    np.testing.assert_array_equal(cams["Rt"][0], load_render_defaults(rd)["400029"].Rt)

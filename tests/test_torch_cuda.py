@@ -14,7 +14,9 @@ count; the display kernel's tex_rec bit for bit and its 8-bit values exact
 on >= 99.99% of the channel texels and never more than one count off; a
 full-width face denoise step within 1e-3 of the CPU's; the full-width guide's
 teacher-forced logits within 1e-5 of their largest magnitude of the CPU's,
-its cached decode token for token equal to its uncached one.
+its cached decode token for token equal to its uncached one; one avatar
+train step's loss parts within 1e-5 relative of the CPU's, its gradients
+within 1e-4 of their largest element.
 """
 
 import pytest
@@ -624,6 +626,37 @@ def test_body_renderer_card_matches_cpu(cuda):
     either = out["cuda"].any(-1) | out["cpu"].any(-1)
     assert (diff.max(-1) <= 1)[either].mean() >= 0.999
     assert (out["cuda"].any(-1) == out["cpu"].any(-1)).mean() >= 0.999
+
+
+@pytest.mark.cuda
+def test_avatar_train_step_card_matches_cpu(cuda):
+    """One avatar train step at a small config (three cameras, 96 x 64
+    image), card (raster kernel) against CPU (plain versions), by
+    chip_smoke's ``avatar_step_parity``: loss parts 1e-5 relative, every
+    gradient 1e-4 of its largest element, params within 2 lr, the identity
+    camera unmoved, the card's raster equal to the plain version's."""
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.apps.render_pipeline import Camera
+    from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets
+    from audio2photoreal_tpu_torch.render.mesh_vae import RendererConfig
+    from chip_smoke import _avatar_frames, _avatar_model, avatar_step_parity
+
+    cfg = RendererConfig(uv_size=64, init_uv_size=16, upscale_size=128, n_embs=32, n_pose_enc_channels=8,
+                         n_embs_enc_channels=8, n_init_channels=16, n_min_channels=4, shadow_size=32,
+                         view_unet_ftrs=4, encoder_in_size=64, face_tex_size=64, n_face_verts=64,
+                         image_height=96, image_width=64, n_cameras=3)
+    assets = make_synthetic_assets(cfg)
+    K = np.array([[80.0, 0, 32], [0, 80.0, 48], [0, 0, 1]], np.float32)
+    cams = {n: Camera(campos=np.array([dx, -3.0, 1.0], np.float32), K=K,
+                      Rt=np.array([[1, 0, 0, -dx], [0, 0, -1, 1], [0, 1, 0, 3]], np.float32))
+            for n, dx in (("cam0", 0.0), ("cam1", 0.5), ("cam2", -0.5))}
+    rng = np.random.RandomState(0)
+    batch = _avatar_frames(assets, cams, [0, 2, 1], rng, cfg)
+    noise = [rng.randn(3, n).astype(np.float32) for n in (cfg.n_embs, cfg.n_face_embs)]
+    res = avatar_step_parity(_avatar_model(cfg, assets, 0), batch, noise, 1e-3)
+    assert all(res["checks"].values()), res
+    assert 0.05 < res["numbers"]["raster_coverage"] < 0.9
 
 
 # --------------------------------------------------------- display pass -- #

@@ -10,6 +10,7 @@ entry points' device rule, and the full-width state_dict against the JAX
 tree through ``train/convert.py:convert_body_avatar``.
 """
 
+import dataclasses
 import json
 import os
 
@@ -278,17 +279,19 @@ def test_generate_plot_renders_every_repetition(tmp_path, avatar):
 
 
 def test_bundle_with_the_jax_only_fields_loads(tmp_path, avatar):
-    """A renderer.json that names the JAX config's noise_std and s2d_tail
-    (they change no inference result) loads with both dropped."""
+    """A renderer.json that names the JAX config's s2d_tail (a TPU layout
+    switch) loads with it dropped; noise_std, which the avatar trainer
+    reads, is kept."""
     bundle = save_renderer_bundle(str(tmp_path / "renderer"), avatar["cfg"], avatar["sd"], _cams(Camera))
     path = os.path.join(bundle, "renderer.json")
     with open(path) as f:
         fields = json.load(f)
-    assert not {"noise_std", "s2d_tail"} & set(fields)
+    assert "s2d_tail" not in fields and fields["noise_std"] == 1.0
     with open(path, "w") as f:
-        json.dump(dict(fields, noise_std=1.0, s2d_tail=True), f)
+        json.dump(dict(fields, noise_std=0.5, s2d_tail=True), f)
     cfg, _, sd, cams = load_bundle_parts(bundle)
-    assert cfg == avatar["cfg"] and set(sd) == set(avatar["sd"]) and set(cams) == set(CAMS)
+    assert cfg == dataclasses.replace(avatar["cfg"], noise_std=0.5)
+    assert set(sd) == set(avatar["sd"]) and set(cams) == set(CAMS)
     assert Camera is render_assets.Camera  # apps/ takes the render layer's
 
 
