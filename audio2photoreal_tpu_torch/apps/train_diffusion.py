@@ -18,8 +18,11 @@ uninterrupted one.  Runs on the card unless ``device`` says otherwise;
 without a card and without ``device`` it raises.  ``--dtype bfloat16`` trains
 with the JAX package's mixed precision (f32 parameters and AdamW state, bf16
 compute, f32 output and loss) and ``--frontend_dtype bfloat16`` runs the
-frozen frontend, and the feature cache's build, on bf16 convs.  Gradient
-checkpointing and the TensorBoard / ClearML reporters raise.
+frozen frontend, and the feature cache's build, on bf16 convs.
+``DenoiserConfig.remat`` recomputes each decoder layer's forward in the
+backward (``models/film_transformer.py``).  The log goes to stdout,
+``log.jsonl`` and TensorBoard event files in the save dir; a
+``--train_platform_type`` reporter may be added (``train/logging.py``).
 """
 
 from __future__ import annotations
@@ -70,8 +73,6 @@ def train(
     the feature cache's build and under ``cache_mb`` its host size; under
     ``reader`` the reads the loader ran
     ("fastdata" or "numpy")."""
-    if mcfg.remat:
-        raise NotImplementedError("gradient checkpointing (remat) is not ported: see ROADMAP")
     dev = resolve_device(device)
     timings = {} if timings is None else timings
     os.makedirs(save_dir, exist_ok=True)
@@ -123,7 +124,7 @@ def train(
         checkpoints.save_train_state(ckpt_dir, step, state)
         checkpoints.save_model(save_dir, model)
 
-    logger = KVLogger(save_dir)
+    logger = KVLogger(save_dir, tensorboard=True)
     try:
         for i in range(state.step, tcfg.num_steps):
             t0 = time.perf_counter()
@@ -187,7 +188,7 @@ def main():
                    help="frozen wav2vec frontend dtype (and the feature cache's); generate runs it in "
                         "float32 whatever the config says")
     p.add_argument("--remat", action="store_true",
-                   help="gradient-checkpoint the decoder layers (not ported yet; raises)")
+                   help="gradient-checkpoint the decoder layers: recompute each one's forward in the backward")
     p.add_argument("--hash_dropout", action="store_true",
                    help="position-hash dropout masks (models/blocks.py:hash_drop_mult) instead of "
                         "Bernoulli draws: the same law, deterministic in (seed, position)")

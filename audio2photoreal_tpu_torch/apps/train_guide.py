@@ -112,7 +112,7 @@ def train(
         checkpoints.save_train_state(ckpt_dir, step, state)
         checkpoints.save_model(save_dir, model)
 
-    logger = KVLogger(save_dir)
+    logger = KVLogger(save_dir, tensorboard=True)
     try:
         for i in range(state.step, tcfg.num_steps):
             t0 = time.perf_counter()

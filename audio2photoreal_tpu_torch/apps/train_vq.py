@@ -111,7 +111,7 @@ def train(
         checkpoints.save_train_state(ckpt_dir, step, state, extra={"best": best})
         checkpoints.save_model(save_dir, model)
 
-    logger = KVLogger(save_dir)
+    logger = KVLogger(save_dir, tensorboard=True)
     try:
         for i in range(state.step, tcfg.num_steps):
             t0 = time.perf_counter()

@@ -288,19 +288,54 @@ def _conv_block(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
 
 
 def unet_wb_state_dict(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
-    """UNetWB: ``down{i}.0`` / ``up{i}.0`` / ``out`` (ca_body/nn/unet.py:16-97)."""
+    """UNetWB / UNetWBConcat (transpose-conv ups, untied biases) or UNetW
+    (conv ups, tied biases): ``down{i}.0`` / ``up{i}.0`` / ``out``
+    (ca_body/nn/unet.py)."""
     for i in range(1, 6):
         _wn_conv(sd, f"{prefix}.down{i}.0", p[f"down{i}"])
-        _wn_convt(sd, f"{prefix}.up{i}.0", p[f"up{i}"])
+        up = p[f"up{i}"]
+        (_wn_convt if np.asarray(up["bias"]).ndim == 3 else _wn_conv)(sd, f"{prefix}.up{i}.0", up)
     _wn_conv(sd, f"{prefix}.out", p["out"])
 
 
 def shadow_unet_state_dict(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
-    """ShadowUNet: ``enc_layers.{i}.0`` / ``dec_layers.{i}.0`` / ``shadow_pred``."""
+    """ShadowUNet: ``enc_layers.{i}.0`` / ``dec_layers.{i}.0`` / ``shadow_pred``;
+    also DistMapShadowUNet, and ShadowUNetPoseCond with its ``pose_fc.0``."""
     for i in range(4):
         _wn_conv(sd, f"{prefix}.enc_layers.{i}.0", p[f"enc{i}"])
         _wn_conv(sd, f"{prefix}.dec_layers.{i}.0", p[f"dec{i}"])
     _wn_conv(sd, f"{prefix}.shadow_pred", p["shadow_pred"])
+    if "pose_fc" in p:
+        _wn_linear(sd, f"{prefix}.pose_fc.0", p["pose_fc"])
+
+
+def _inner(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    return params["params"] if "params" in params else params
+
+
+def shadow_unet_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """ShadowUNet / ShadowUNetPoseCond / DistMapShadowUNet params (``{"params":
+    ...}`` or the inner tree) → the port's state_dict."""
+    sd: StateDict = {}
+    shadow_unet_state_dict(sd, "", _inner(params))
+    return {k[1:]: v for k, v in sd.items()}
+
+
+def floor_shadow_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """FloorShadowDecoder: ``down_layers.{i}.0`` / ``up_layers.{i}.0`` / ``shadow_pred``."""
+    p, sd = _inner(params), {}
+    for i in range(3):
+        _wn_conv(sd, f"down_layers.{i}.0", p[f"down{i}"])
+        _wn_conv(sd, f"up_layers.{i}.0", p[f"up{i}"])
+    _wn_conv(sd, "shadow_pred", p["shadow_pred"])
+    return sd
+
+
+def unet_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """UNetWB / UNetWBConcat / UNetW params → the port's state_dict."""
+    sd: StateDict = {}
+    unet_wb_state_dict(sd, "", _inner(params))
+    return {k[1:]: v for k, v in sd.items()}
 
 
 def pose_to_shadow_state_dict(sd: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
@@ -341,7 +376,7 @@ def body_avatar_state_dict_from_jax(params: Mapping[str, Any], cfg) -> StateDict
 
     from audio2photoreal_tpu_torch.render.mesh_vae import _embs_plan, _face_plan
 
-    p = params["params"] if "params" in params else params
+    p = _inner(params)
     sd: StateDict = {}
     enc = p["encoder"]
     _conv_block(sd, "encoder.verts_conv", enc["verts_conv"])

@@ -3,9 +3,8 @@
 A copy of ``audio2photoreal_tpu/core/config.py`` that imports no JAX: the
 same frozen dataclasses and the same ``config.json`` format, so a sidecar
 written by either package is read by the other.  Fields that only the JAX
-package acts on (``remat``, ``hash_dropout``, ``rng_impl``, the mesh) are kept
-so that the file round-trips; the port's modules raise where a value asks for
-behaviour the port does not have yet.
+package acts on (``rng_impl``, the mesh) are kept so that the file
+round-trips.
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 Counterpart of ``audio2photoreal_tpu/diffusion/gaussian.py`` (reference:
 diffusion/gaussian_diffusion.py: q_sample:215, q_posterior_mean_variance:235,
-p_mean_variance:259, the _predict helpers:328-356).  ``s`` is a ``Schedule``
+p_mean_variance:259, the _predict helpers:328-356, condition_mean /
+condition_score:358-412).  ``s`` is a ``Schedule``
 of tensors (``Schedule.to_device``); ``x`` is [B, ...] and ``t`` int [B].
 """
 
@@ -106,3 +107,18 @@ def p_mean_variance(
     else:
         raise ValueError(f"unknown var_type {var_type!r}")
     return PMeanVar(mean, var, logvar, x0)
+
+
+def condition_mean(mean: torch.Tensor, variance: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """Classifier-guidance mean shift: mean + variance * grad log p(y|x)
+    (gaussian_diffusion.py:358-380)."""
+    return mean + variance * grad
+
+
+def condition_score(s: Schedule, xt: torch.Tensor, t: torch.Tensor, pred_x0: torch.Tensor,
+                    grad: torch.Tensor) -> torch.Tensor:
+    """Classifier-guided x0 re-estimate by the score route
+    (gaussian_diffusion.py:382-412)."""
+    eps = predict_eps_from_x0(s, xt, t, pred_x0)
+    eps = eps - extract(s.sqrt_one_minus_alphas_cumprod, t, xt.dim()) * grad
+    return predict_x0_from_eps(s, xt, t, eps)

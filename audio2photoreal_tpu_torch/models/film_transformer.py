@@ -32,6 +32,16 @@ bf16 under ``"bfloat16"``, with the pooled conditioning and the time
 embedding kept in f32 and ``final_layer`` promoting back to f32, so the
 post-net and the output are f32 (film_transformer.py:56-87, :391-490).
 ``cfg.frontend_dtype`` sets the frozen wav2vec frontend's.
+
+``cfg.remat`` checkpoints each decoder layer under autograd (JAX
+``nn.remat(FiLMDecoderLayer)``, film_transformer.py:137-141): its
+activations are dropped after the forward and recomputed in the backward
+(``torch.utils.checkpoint``, non-reentrant, so the recompute runs with
+grad on and ``blocks.kept`` caches no cast).  The recompute replays the
+layer's dropout draws: the layer draws from a copy of the step's
+generator taken before its forward, and the step's generator moves on as
+the plain forward moves it.  The stacked cross-attention K/V stay outside
+the checkpointed layers.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from audio2photoreal_tpu_torch.core.config import DenoiserConfig
 from audio2photoreal_tpu_torch.core.dtypes import default_policy
@@ -90,6 +101,29 @@ class DecoderStack(nn.Module):
     def __init__(self, layers):
         super().__init__()
         self.stack = nn.ModuleList(layers)
+
+
+def _checkpointed(layer: FiLMDecoderLayer, h, t_vec, cross_kv, pose_tokens, rotary,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer(...)`` under a non-reentrant checkpoint; the forward and its
+    recompute draw the same dropout from copies of ``generator``, which
+    then stands where the plain forward would leave it."""
+    start, end = (None if generator is None else generator.get_state()), {}
+
+    def run(h, t_vec, k, v, pose_tokens):
+        g = None
+        if start is not None:
+            g = torch.Generator(device=generator.device)
+            g.set_state(start)
+        out = layer(h, t_vec, (k, v), pose_tokens, rotary=rotary, generator=g)
+        if g is not None:
+            end.setdefault("state", g.get_state())
+        return out
+
+    out = checkpoint(run, h, t_vec, *cross_kv, pose_tokens, use_reentrant=False)
+    if generator is not None:
+        generator.set_state(end["state"])
+    return out
 
 
 class FiLMDenoiser(nn.Module):
@@ -317,9 +351,13 @@ class FiLMDenoiser(nn.Module):
         kw, kb, vw, vb = self._stacked_cross_kv_weights()
         ks = torch.cat([cache["ks"], F.linear(mem_t_rot, kw, kb)], dim=1)
         vs = torch.cat([cache["vs"], F.linear(mem_t, vw, vb)], dim=1)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             cross_kv = (ks[..., i * D : (i + 1) * D], vs[..., i * D : (i + 1) * D])
-            h = layer(h, t_vec, cross_kv, cache["pose_tokens"], rotary=rot, generator=generator)
+            if remat:
+                h = _checkpointed(layer, h, t_vec, cross_kv, cache["pose_tokens"], rot, generator)
+            else:
+                h = layer(h, t_vec, cross_kv, cache["pose_tokens"], rotary=rot, generator=generator)
         out = self.final_layer(h.to(self.policy.output_dtype))  # the post-net and the output are f32
         return self._postnet(out, generator) if self.cfg.data_format == "pose" else out
 

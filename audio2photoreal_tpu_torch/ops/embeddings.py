@@ -1,8 +1,9 @@
 """Positional / timestep embeddings.
 
-Counterpart of ``audio2photoreal_tpu/ops/embeddings.py`` for the
-embeddings the port uses: the denoiser's time embedding (model/utils.py:67-81
-SinusoidalPosEmb) and the lip regressor's absolute positions.
+Counterpart of ``audio2photoreal_tpu/ops/embeddings.py``: the
+denoiser's time embedding (model/utils.py:67-81 SinusoidalPosEmb), the lip
+regressor's absolute positions, and the guided-diffusion timestep embedding
+(diffusion/nn.py:124), which no ported model calls.
 """
 
 from __future__ import annotations
@@ -10,6 +11,18 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding, [B] -> [B, dim]: cos then sin, a zero
+    column for an odd ``dim``."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period) * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.to(torch.float32)[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.nn.functional.pad(emb, (0, 1))
+    return emb
 
 
 def sinusoidal_pos_emb(positions: torch.Tensor, dim: int, base: float = 10_000.0) -> torch.Tensor:

@@ -8,7 +8,10 @@ visualize/ca_body/utils/geom.py):
 - ``GeometryModule.to_uv`` (values_to_uv, geom.py:304-322) and ``from_uv``
   (sample_uv, geom.py:274-302: ``F.grid_sample`` with align_corners=True and
   zero padding, then the mean over each vertex's UV duplicates);
-- vertex normals, ``compute_view_cos`` and ``project_points``.
+- face and vertex normals, ``compute_view_cos``, ``project_points`` and
+  ``project_points_multi``;
+- ``depth2xyz`` / ``xyz2normals`` / ``depth2normals`` (geom.py:559-633),
+  channels last as in the JAX package.
 
 UV images are NCHW [B, C, H, W]; vertex arrays [B, V, C].
 """
@@ -172,11 +175,19 @@ class GeometryModule(nn.Module):
         return out[:, self.v2uv].mean(dim=2)
 
 
+def face_normals(verts: torch.Tensor, faces: torch.Tensor, normalize: bool = True) -> torch.Tensor:
+    """[B, V, 3] x [F, 3] -> [B, F, 3] (geom.py:323-333)."""
+    v0, v1, v2 = verts[:, faces[:, 0]], verts[:, faces[:, 1]], verts[:, faces[:, 2]]
+    n = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
+    if normalize:
+        n = n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp_min(1e-12)
+    return n
+
+
 def vert_normals(verts: torch.Tensor, faces: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Vertex normals: the sum of the unit normals of the faces around each
     vertex, normalised (geom.py:323-346; not area-weighted)."""
-    v0, v1, v2 = verts[:, faces[:, 0]], verts[:, faces[:, 1]], verts[:, faces[:, 2]]
-    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
+    fn = face_normals(verts, faces, normalize=False)
     norm = torch.linalg.norm(fn, dim=-1, keepdim=True)
     fn = fn / torch.where(norm < eps, torch.ones_like(norm), norm)
     vn = torch.zeros_like(verts)
@@ -206,3 +217,50 @@ def project_points(
     xy = cam[..., :2] / z[..., None].clamp_min(1e-8)
     pix = torch.einsum("bij,bvj->bvi", K[:, :2, :2], xy) + K[:, :2, 2][:, None]
     return pix, z
+
+
+def project_points_multi(
+    p: torch.Tensor,  # [B, N, 3] world points
+    Rt: torch.Tensor,  # [B, NC, 3, 4]
+    K: torch.Tensor,  # [B, NC, 3, 3]
+    normalize: bool = False,
+    size=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pinhole projection into several cameras (geom.py:525-557) -> (pix
+    [B, NC, N, 2], depth [B, NC, N]); ``normalize`` maps pixels of an image
+    of ``size`` (h, w) to [-1, 1]."""
+    cam = torch.einsum("bcij,bnj->bcni", Rt[..., :3], p) + Rt[..., 3][:, :, None]
+    pix3 = torch.einsum("bcij,bcnj->bcni", K, cam)
+    depth = pix3[..., 2]
+    pix = pix3[..., :2] / depth[..., None].clamp_min(1e-8)
+    if normalize:
+        assert size is not None
+        h, w = size
+        pix = 2.0 * pix / torch.tensor([w, h], dtype=torch.float32, device=p.device) - 1.0
+    return pix, depth
+
+
+def depth2xyz(depth: torch.Tensor, focal: torch.Tensor, princpt: torch.Tensor) -> torch.Tensor:
+    """[B, H, W] depth, [B, 2, 2] focal, [B, 2] principal point -> [B, H, W,
+    3] camera-space XYZ (geom.py:584-612, channels last)."""
+    _, H, W = depth.shape
+    ix = (torch.arange(W, dtype=torch.float32, device=depth.device)[None, None]
+          - princpt[:, None, None, 0]) / focal[:, None, None, 0, 0]
+    iy = (torch.arange(H, dtype=torch.float32, device=depth.device)[None, :, None]
+          - princpt[:, None, None, 1]) / focal[:, None, None, 1, 1]
+    return torch.stack([depth * ix, depth * iy, depth], dim=-1)
+
+
+def xyz2normals(xyz: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """[B, H, W, 3] XYZ image -> unit normals by central differences
+    (geom.py:559-580, channels last, zero-padded borders)."""
+    xp = F.pad(xyz, (0, 0, 1, 1, 1, 1))
+    U = (xp[:, 2:, 1:-1] - xp[:, :-2, 1:-1]) / -2
+    V = (xp[:, 1:-1, 2:] - xp[:, 1:-1, :-2]) / -2
+    n = torch.linalg.cross(U, V, dim=-1)
+    return n / torch.linalg.norm(n, dim=-1, keepdim=True).clamp_min(eps)
+
+
+def depth2normals(depth: torch.Tensor, focal: torch.Tensor, princpt: torch.Tensor) -> torch.Tensor:
+    """Depth image -> normal image (geom.py:616-633)."""
+    return xyz2normals(depth2xyz(depth, focal, princpt))

@@ -47,11 +47,13 @@ from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
 from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
 from audio2photoreal_tpu_torch.diffusion import gaussian, losses, tsample
 from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
+from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention_reference
 from audio2photoreal_tpu_torch.models import blocks
 from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
 from audio2photoreal_tpu_torch.train import checkpoints, logging
 from audio2photoreal_tpu_torch.train.loops import diffusion_train_step
 from audio2photoreal_tpu_torch.train.state import TrainState, trainable_parameters
+from audio2photoreal_tpu_torch.utils.profiling import Timer, profile_trace
 
 T = 128
 MODEL = dict(data_format="pose", latent_dim=64, ff_size=128, num_layers=2, num_heads=2, max_seq_length=T,
@@ -525,18 +527,174 @@ def test_train_runs_on_the_card_by_default(person, tmp_path, monkeypatch):
         _train(person, str(tmp_path / "run"), 1)
 
 
-def test_train_refuses_what_is_not_ported(person, tmp_path):
-    kw = dict(device="cpu")
-    for bad in (dict(remat=True),):  # bf16 compute is ported (tests/test_torch_bf16.py)
-        with pytest.raises(NotImplementedError, match="remat"):
-            train_diffusion.train(person, str(tmp_path), DenoiserConfig(**{**TINY, **bad}), DiffusionConfig(),
-                                  DataConfig(person="SYNTH01", max_seq_length=T), TrainConfig(), **kw)
+def test_train_refuses_an_unknown_reader(person, tmp_path):
     with pytest.raises(ValueError, match="reader"):
-        _train(person, str(tmp_path), 1, reader="c", **kw)
-    for name in ("TensorboardPlatform", "ClearmlPlatform"):
-        with pytest.raises(NotImplementedError):
-            logging.create_platform(name, str(tmp_path))
+        _train(person, str(tmp_path), 1, reader="c", device="cpu")
+
+
+def test_train_runs_with_remat_and_writes_tensorboard_events(person, tmp_path):
+    run = str(tmp_path / "run")
+    state = train_diffusion.train(
+        person, run, DenoiserConfig(**{**TINY, "remat": True}), DiffusionConfig(),
+        DataConfig(person="SYNTH01", max_seq_length=T, min_seq_length=100, batch_size=2),
+        TrainConfig(num_steps=2, log_interval=1, save_interval=1000, seed=5), device="cpu")
+    assert state.step == 2 and state.model.cfg.remat
+    assert [json.loads(line)["step"] for line in open(os.path.join(run, "log.jsonl"))] == [0, 1]
+    assert any(f.startswith("events.out.tfevents") for f in os.listdir(run))
+
+
+# ------------------------------------------------------------- remat -- #
+
+SMALL = dict(data_format="pose", nfeats=8, latent_dim=16, ff_size=32, num_layers=2, num_heads=2,
+             max_seq_length=12, keyframe_step=6, dropout=0.1)
+
+
+def _small_batch(B=2, Ts=12, seed=21):
+    rng = np.random.RandomState(seed)
+    return {"motion": rng.randn(B, Ts, 8).astype(np.float32), "mask": np.ones((B, Ts), np.float32),
+            "audio": (rng.randn(B, Ts * 1600, 2) * 0.1).astype(np.float32),
+            "keyframes": rng.randn(B, 2, 104).astype(np.float32), "keyframe_valid": np.ones((B, 2), np.float32)}
+
+
+def _step(model, batch, t, noise, generator=None, dcfg=None):
+    state = TrainState(model, TrainConfig(lr=LR))
+    metrics, _ = diffusion_train_step(state, make_schedule().to_device("cpu"), dcfg or DiffusionConfig(cond_drop_prob=0.0),
+                                      _torch_batch(batch), generator, t=torch.from_numpy(t),
+                                      noise=torch.from_numpy(noise))
+    return metrics, {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def test_remat_step_equals_the_plain_step_with_dropout(monkeypatch):
+    """Training mode at T 128 (the flash gate open), hash dropout 0.1 and the
+    guidance drop: the checkpointed step replays every draw, so loss and
+    gradients equal the plain step's bit for bit; the decoder's attention
+    runs once more per layer (the recompute); the step's generator ends
+    where the plain step leaves it."""
+    b = _batch()
+    rng = np.random.RandomState(22)
+    t, noise = np.array([37, 912]), rng.randn(2, T, 104).astype(np.float32)
+    calls, out = [], {}
+    monkeypatch.setattr(blocks, "flash_attention", lambda *a: calls.append(a[0].shape) or
+                        flash_attention_reference(*a))
+    for remat in (False, True):
+        m = _port_model(seed=7, remat=remat).train()
+        g = torch.Generator().manual_seed(8)
+        calls.clear()
+        out[remat] = (*_step(m, b, t, noise, g, DiffusionConfig(cond_drop_prob=0.2)), len(calls), g.get_state())
+    (m0, g0, n0, s0), (m1, g1, n1, s1) = out[False], out[True]
+    assert m0["loss"] == m1["loss"] and sorted(g0) == sorted(g1)
+    for n in g0:
+        torch.testing.assert_close(g1[n], g0[n], rtol=0, atol=0, msg=n)
+    assert n0 == 2 * MODEL["num_layers"] and n1 == 2 * n0  # self- and cross-attention a layer, twice under remat
+    assert torch.equal(s0, s1)
+
+
+def test_remat_step_caches_no_cast():
+    """bf16 compute: the checkpointed forward and its recompute run with
+    grad on, so ``blocks.kept`` keeps no cast of a parameter."""
+    b = _small_batch()
+    rng = np.random.RandomState(23)
+    m = FiLMDenoiser(DenoiserConfig(**{**SMALL, "remat": True, "dtype": "bfloat16"}))
+    m.reset_parameters(torch.Generator().manual_seed(3))
+    metrics, grads = _step(m.train(), b, np.array([5, 500]), rng.randn(2, 12, 8).astype(np.float32),
+                           torch.Generator().manual_seed(4))
+    assert np.isfinite(metrics["loss"]) and grads
+    assert not any(mod.__dict__.get("_casts") for mod in m.modules())
+
+
+def test_remat_step_matches_jax_remat_step():
+    """One deterministic step (eval mode, no guidance drop) of a small pose
+    model with ``remat`` on both sides, JAX's under ``nn.remat``: the
+    step-parity bars (loss 1e-5 relative, each gradient 1e-4 of its largest
+    element), and the port's gradients equal to its plain step's."""
+    pm = FiLMDenoiser(DenoiserConfig(**{**SMALL, "remat": True}))
+    pm.reset_parameters(torch.Generator().manual_seed(9))
+    rng = np.random.RandomState(10)
+    with torch.no_grad():
+        for p in pm.parameters():
+            if p.dim() == 1:
+                p.add_(torch.from_numpy(0.1 * rng.randn(*p.shape).astype(np.float32)))
+    plain = copy.deepcopy(pm)
+    plain.cfg = DenoiserConfig(**SMALL)
+    b, t = _small_batch(), np.array([37, 912])
+    noise = rng.randn(2, 12, 8).astype(np.float32)
+    jparams = convert_film_denoiser({k: v.clone() for k, v in pm.state_dict().items()}, "pose", SMALL["num_layers"])
+    jm = JDenoiser(j_config.DenoiserConfig(**{**SMALL, "remat": True}))
+    jsched = j_make_schedule("cosine", 1000)
+
+    def loss_fn(params):
+        x0, tt = jnp.asarray(b["motion"]), jnp.asarray(t, jnp.int32)
+        xt = j_gaussian.q_sample(jsched, x0, tt, jnp.asarray(noise))
+        out = jm.apply(params, xt, tt, jnp.asarray(b["audio"]), jnp.asarray(b["keyframes"]),
+                       jnp.asarray(b["keyframe_valid"]), cond_drop_prob=0.0, deterministic=True)
+        return j_losses.training_losses(jsched, "xstart", out, x0, xt, tt, jnp.asarray(b["mask"])[..., None])["loss"].mean()
+
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(jparams)
+    metrics, grads = _step(pm.eval(), b, t, noise)
+    _, plain_grads = _step(plain.eval(), b, t, noise)
+    np.testing.assert_allclose(metrics["loss"], float(jloss), rtol=1e-5)
+    want = convert.film_denoiser_state_dict_from_jax(jgrads, "pose", SMALL["num_layers"])
+    for name, g in grads.items():
+        w = _np(want[name])
+        np.testing.assert_allclose(_np(g), w, atol=1e-4 * np.abs(w).max(), rtol=0, err_msg=name)
+        torch.testing.assert_close(g, plain_grads[name], rtol=0, atol=0, msg=name)
+
+
+# ----------------------------------------------- logging and profiling -- #
+
+
+def test_platforms(tmp_path):
     assert isinstance(logging.create_platform("NoPlatform", None), logging.NoPlatform)
+    with pytest.raises(ValueError, match="unknown train platform"):
+        logging.create_platform("NopePlatform", None)
+    with pytest.raises(ModuleNotFoundError, match="clearml"):  # the SDK is imported at construction
+        logging.create_platform("ClearmlPlatform", str(tmp_path / "clearml"))
+    d = str(tmp_path / "tb")
+    tb = logging.create_platform("TensorboardPlatform", d)
+    tb.report_args(TrainConfig(lr=3e-4), name="train_args")
+    tb.report_scalar("loss", 1.5, 3, group_name="train")
+    tb.close()
+    assert json.load(open(os.path.join(d, "train_args.json")))["lr"] == 3e-4
+    assert json.loads(open(os.path.join(d, "log.jsonl")).readline())["train/loss"] == 1.5
+    events = [f for f in os.listdir(d) if f.startswith("events.out.tfevents")]
+    assert events and os.path.getsize(os.path.join(d, events[0])) > 0
+
+
+def test_kv_logger_means_dump_and_profile_kv(tmp_path, capsys, monkeypatch):
+    log = logging.KVLogger(str(tmp_path))
+    log.logkv_mean("a", 1.0)
+    log.logkv_mean("a", 3.0)
+    with log.profile_kv("step"):
+        pass
+    log.dump(7)
+    log.log(8, {"b": 2})
+    log.close()
+    rows = [json.loads(line) for line in open(tmp_path / "log.jsonl")]
+    assert [r["step"] for r in rows] == [7, 8] and rows[0]["a"] == 2.0 and rows[0]["wall_step"] >= 0.0
+    assert rows[1]["b"] == 2.0 and "a" not in rows[1]
+    assert "[step 7] a 2" in capsys.readouterr().out
+    # no SummaryWriter to be had: the logger runs without TensorBoard
+    import torch.utils.tensorboard as tb_mod
+
+    def refuse(*a, **k):
+        raise ImportError("no tensorboard")
+
+    monkeypatch.setattr(tb_mod, "SummaryWriter", refuse)
+    quiet = logging.KVLogger(str(tmp_path / "no_tb"), tensorboard=True)
+    quiet.log(0, {"c": 1.0})
+    quiet.close()
+    assert not any(f.startswith("events") for f in os.listdir(tmp_path / "no_tb"))
+
+
+def test_timer_and_profile_trace(tmp_path):
+    timer = Timer(ema=0.5)
+    first = timer.tick()
+    second = timer.tick(4)
+    assert first > 0 and second > 0 and timer.rate == second
+    with profile_trace(str(tmp_path / "trace")) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    assert any("mm" in e.key for e in prof.key_averages())
 
 
 # ------------------------------------------------- the face trainer -- #
