@@ -22,8 +22,14 @@ The bundle (``render/assets.py``) must say ``n_cameras > 0`` in its
 is rewritten with the trained weights, the calibration among them, so
 ``apps/render_pipeline.py:load_body_renderer`` renders the trained avatar.
 Each step's posterior noise comes from a generator on the card seeded by
-(``seed``, step).  Runs on the card unless ``device`` says otherwise.  The
-JAX CLI's distributed flags are not ported (ROADMAP queue 1).
+(``seed``, step).  Runs on the card unless ``device`` says otherwise.
+
+On N processes (the JAX CLI's distributed flags, ``parallel/distributed.py``)
+each process reads its own contiguous slice of the frame files
+(``slice_for_process``), a step's global batch is the N files' frames
+together, and the steps compute the global batch's step
+(``train/loops.py``); only process 0 writes the checkpoints, ``model.pt``
+and the log.
 """
 
 from __future__ import annotations
@@ -41,6 +47,9 @@ from audio2photoreal_tpu_torch.apps.generate import CKPT_DIR
 from audio2photoreal_tpu_torch.core.config import TrainConfig
 from audio2photoreal_tpu_torch.core.device import resolve_device
 from audio2photoreal_tpu_torch.data.loader import step_seed
+from audio2photoreal_tpu_torch.parallel import distributed as dist
+from audio2photoreal_tpu_torch.parallel.mesh import local_mesh
+from audio2photoreal_tpu_torch.parallel.sharding import replicated
 from audio2photoreal_tpu_torch.render.assets import load_bundle_parts
 from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar
 from audio2photoreal_tpu_torch.train import checkpoints
@@ -84,8 +93,11 @@ def train(
 ) -> TrainState:
     """Train up to step ``num_steps`` (resuming from ``ckpt/``) and return
     the state.  ``timings``, when given, receives each step's wall seconds
-    under ``step_s`` (a step ends in a read-back)."""
-    dev = resolve_device(device)
+    under ``step_s`` (a step ends in a read-back).  In a process group
+    ``device`` defaults to this process's card."""
+    dev = resolve_device(device) if device is not None else dist.local_device()
+    mesh = local_mesh(dev)
+    coord = dist.is_coordinator()  # only process 0 writes
     timings = {} if timings is None else timings
     cfg, assets, sd, _ = load_bundle_parts(renderer_dir)
     if cfg.n_cameras <= 0:
@@ -94,6 +106,7 @@ def train(
     files = sorted(glob.glob(os.path.join(data_dir, "*.npz")))
     if not files:
         raise SystemExit(f"no .npz frame batches under {data_dir}")
+    files = files[dist.slice_for_process(len(files))] or files  # this process's frame files
     model = BodyAvatar(cfg, assets)  # the calibration's constructors start it at identity
     _load_inference_weights(model, sd)
     model.to(dev).train()
@@ -102,21 +115,24 @@ def train(
     last, _ = checkpoints.try_resume(ckpt_dir, state)
     if last is not None:
         print(f"resumed avatar training from step {last}", flush=True)
-    logger = KVLogger(os.path.join(renderer_dir, LOG_DIR))
+    replicated(model)
+    logger = KVLogger(os.path.join(renderer_dir, LOG_DIR)) if coord else None
     try:
         for i in range(state.step, num_steps):
             t0 = time.perf_counter()
             batch = load_frame_batch(files[i % len(files)], dev)
             generator = torch.Generator(device=dev).manual_seed(step_seed(seed, state.step))
-            metrics = avatar_train_step(state, batch, generator, kl_weight=kl_weight)
+            metrics = avatar_train_step(state, batch, generator, kl_weight=kl_weight, mesh=mesh)
             timings.setdefault("step_s", []).append(time.perf_counter() - t0)
-            if i % LOG_INTERVAL == 0 or i == num_steps - 1:
+            if (i % LOG_INTERVAL == 0 or i == num_steps - 1) and logger is not None:
                 logger.log(i, metrics)
-            if (i + 1) % save_interval == 0 or i == num_steps - 1:
+            if ((i + 1) % save_interval == 0 or i == num_steps - 1) and coord:
                 checkpoints.save_train_state(ckpt_dir, i + 1, state)
                 checkpoints.save_model(renderer_dir, model)
+        dist.barrier()  # the run is saved when train() returns on any process
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
 
 
@@ -129,8 +145,11 @@ def main():
     p.add_argument("--save_interval", type=int, default=500)
     p.add_argument("--kl_weight", type=float, default=1e-3)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None, help="torch device (default: cuda; raises without one)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda:{LOCAL_RANK}; raises without that card)")
+    dist.add_distributed_args(p)
     args = p.parse_args()
+    dist.initialize_from_args(args)  # before any device query
     train(args.renderer_dir, args.data_dir, args.num_steps, args.lr, args.save_interval, args.kl_weight,
           args.seed, device=args.device)
 

@@ -23,11 +23,21 @@ frozen frontend, and the feature cache's build, on bf16 convs.
 backward (``models/film_transformer.py``).  The log goes to stdout,
 ``log.jsonl`` and TensorBoard event files in the save dir; a
 ``--train_platform_type`` reporter may be added (``train/logging.py``).
+
+On N processes (``--distributed`` under ``torchrun``, or
+``--coordinator_address`` / ``--num_processes`` / ``--process_id``; the JAX
+CLI's flags, ``parallel/distributed.py``) each process runs on its card
+(``cuda:{LOCAL_RANK}``), loads its ``batch_size / N`` rows of every batch
+from its process-folded seed, and the steps compute the global batch's
+step (``train/loops.py``).  Every process reads the checkpoint on resume
+and builds its own feature cache in memory; only process 0 writes the
+config, the checkpoints, ``model.pt`` and the log.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -43,6 +53,9 @@ from audio2photoreal_tpu_torch.data.loader import SceneIndex, make_train_iterato
 from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
 from audio2photoreal_tpu_torch.diffusion.tsample import LossSecondMomentState
 from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
+from audio2photoreal_tpu_torch.parallel import distributed as dist
+from audio2photoreal_tpu_torch.parallel.mesh import data_mesh
+from audio2photoreal_tpu_torch.parallel.sharding import replicated
 from audio2photoreal_tpu_torch.train import checkpoints
 from audio2photoreal_tpu_torch.train.logging import PLATFORMS, KVLogger, TrainPlatform, create_platform
 from audio2photoreal_tpu_torch.train.loops import diffusion_train_step
@@ -72,11 +85,16 @@ def train(
     so it counts even while it overlaps the host's work); under ``cache_s``
     the feature cache's build and under ``cache_mb`` its host size; under
     ``reader`` the reads the loader ran
-    ("fastdata" or "numpy")."""
-    dev = resolve_device(device)
+    ("fastdata" or "numpy").  In a process group ``datacfg.batch_size`` is
+    the global batch, and ``device`` defaults to this process's card."""
+    dev = resolve_device(device) if device is not None else dist.local_device()
+    mesh = data_mesh(datacfg.batch_size, dev)
+    coord = dist.is_coordinator()  # only process 0 writes
     timings = {} if timings is None else timings
-    os.makedirs(save_dir, exist_ok=True)
-    save_config(save_dir, denoiser=mcfg, diffusion=dcfg, data=datacfg, train=tcfg)
+    if coord:
+        os.makedirs(save_dir, exist_ok=True)
+        save_config(save_dir, denoiser=mcfg, diffusion=dcfg, data=datacfg, train=tcfg)
+    platform = platform if coord else None
     if platform is not None:
         platform.report_args(tcfg, name="train_args")
 
@@ -94,9 +112,10 @@ def train(
         raise ValueError(f"unknown schedule_sampler {tcfg.schedule_sampler!r}")
 
     ckpt_dir = os.path.join(save_dir, CKPT_DIR)
-    last, _ = checkpoints.try_resume(ckpt_dir, state)
+    last, _ = checkpoints.try_resume(ckpt_dir, state)  # every process reads it
     if last is not None:
         print(f"resumed from step {last}", flush=True)
+    replicated(model)
 
     feature_cache = None
     if cache_audio_features:
@@ -115,16 +134,19 @@ def train(
         out = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
         return {k: v.pin_memory() for k, v in out.items()} if pin else out
 
-    batches, loader = make_train_iterator(data_root, stats, datacfg, seed=tcfg.seed, start_step=state.step,
-                                          num_steps=tcfg.num_steps, feature_cache=feature_cache, reader=reader,
-                                          transform=to_tensors)
+    # this process's rows of every batch, from its own seed
+    local = dataclasses.replace(datacfg, batch_size=dist.local_batch_size(datacfg.batch_size))
+    batches, loader = make_train_iterator(data_root, stats, local, seed=dist.per_process_seed(tcfg.seed),
+                                          start_step=state.step, num_steps=tcfg.num_steps,
+                                          feature_cache=feature_cache, reader=reader, transform=to_tensors)
     timings["reader"] = loader.reader
 
     def save(step: int) -> None:
-        checkpoints.save_train_state(ckpt_dir, step, state)
-        checkpoints.save_model(save_dir, model)
+        if coord:
+            checkpoints.save_train_state(ckpt_dir, step, state)
+            checkpoints.save_model(save_dir, model)
 
-    logger = KVLogger(save_dir, tensorboard=True)
+    logger = KVLogger(save_dir, tensorboard=True) if coord else None
     try:
         for i in range(state.step, tcfg.num_steps):
             t0 = time.perf_counter()
@@ -132,19 +154,19 @@ def train(
             if pin:  # the copy is enqueued without blocking: CUDA events time it on the card
                 copy = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 copy[0].record()
-            batch = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
+            batch = dist.shard_batch_global(mesh, host)
             wait_s = time.perf_counter() - t0
             if pin:
                 copy[1].record()
             s = step_seed(tcfg.seed, i)
             metrics, ts_state = diffusion_train_step(
                 state, sched, dcfg, batch, torch.Generator().manual_seed(s),
-                torch.Generator(device=dev).manual_seed(s), ts_state=ts_state)
+                torch.Generator(device=dev).manual_seed(s), ts_state=ts_state, mesh=mesh)
             # the step ends in a read-back, so the copy's events have completed
             copy_s = copy[0].elapsed_time(copy[1]) / 1e3 if pin else 0.0
             timings.setdefault("batch_s", []).append(wait_s + copy_s)
             timings.setdefault("step_s", []).append(time.perf_counter() - t0)
-            if i % tcfg.log_interval == 0:
+            if i % tcfg.log_interval == 0 and logger is not None:
                 kv = {k: v for k, v in metrics.items() if np.isfinite(v)}
                 logger.log(i, kv)
                 if platform is not None:
@@ -153,9 +175,11 @@ def train(
             if (i + 1) % tcfg.save_interval == 0:
                 save(i + 1)
         save(tcfg.num_steps)
+        dist.barrier()  # the run is saved when train() returns on any process
     finally:
         batches.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
         if platform is not None:
             platform.close()
     return state
@@ -200,8 +224,11 @@ def main():
                         "build/torch_host/), numpy, or fastdata when it builds")
     p.add_argument("--schedule_sampler", default="uniform", choices=["uniform", "loss_second_moment"])
     p.add_argument("--train_platform_type", default="NoPlatform", choices=list(PLATFORMS))
-    p.add_argument("--device", default=None, help="torch device (default: cuda; raises without one)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda:{LOCAL_RANK}; raises without that card)")
+    dist.add_distributed_args(p)
     args = p.parse_args()
+    dist.initialize_from_args(args)  # before any device query
 
     nfeats = 104 if args.data_format == "pose" else 256
     latent = args.latent_dim or (256 if args.data_format == "pose" else 512)
@@ -219,7 +246,8 @@ def main():
                        schedule_sampler=args.schedule_sampler)
     train(args.data_root, args.save_dir, mcfg, dcfg, datacfg, tcfg,
           cache_audio_features=args.cache_audio_features,
-          platform=create_platform(args.train_platform_type, args.save_dir), device=args.device,
+          platform=create_platform(args.train_platform_type, args.save_dir) if dist.is_coordinator() else None,
+          device=args.device,
           reader=args.reader)
 
 

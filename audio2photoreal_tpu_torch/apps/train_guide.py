@@ -17,8 +17,13 @@ keeps the train state.  Each step's draws (the batch's windows, the
 conditioning dropout, the dropout sites' seeds) come from generators seeded
 by (``--seed``, step).  Runs on the card unless ``device`` says otherwise;
 without a card and without ``device`` it raises.  The JAX CLI's
-``--rng_impl`` and distributed flags are not ported (ROADMAP queue 1, items
-6-7).
+``--rng_impl`` is not ported (ROADMAP queue 1).
+
+On N processes (the JAX CLI's distributed flags, ``parallel/distributed.py``)
+each process loads its ``batch_size / N`` rows of every batch from its
+process-folded seed, builds its own feature cache in memory, and the steps
+compute the global batch's step (``train/loops.py``); only process 0 writes
+the config, the checkpoints, ``model.pt`` and the log.
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ from audio2photoreal_tpu_torch.data.feature_cache import build_cache_for_index, 
 from audio2photoreal_tpu_torch.data.loader import SceneIndex, make_train_iterator, step_seed
 from audio2photoreal_tpu_torch.models.guide import GuideTransformer
 from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
+from audio2photoreal_tpu_torch.parallel import distributed as dist
+from audio2photoreal_tpu_torch.parallel.mesh import data_mesh
+from audio2photoreal_tpu_torch.parallel.sharding import replicated
 from audio2photoreal_tpu_torch.train import checkpoints
 from audio2photoreal_tpu_torch.train.logging import KVLogger
 from audio2photoreal_tpu_torch.train.loops import guide_train_step
@@ -72,13 +80,17 @@ def train(
     """Train ``tcfg.num_steps`` steps (resuming from ``save_dir/ckpt``) and
     return the state.  ``timings``, when given, receives each step's wall
     seconds under ``step_s`` and the feature cache's build under
-    ``cache_s``."""
-    dev = resolve_device(device)
+    ``cache_s``.  In a process group ``datacfg.batch_size`` is the global
+    batch, and ``device`` defaults to this process's card."""
+    dev = resolve_device(device) if device is not None else dist.local_device()
+    mesh = data_mesh(datacfg.batch_size, dev)
+    coord = dist.is_coordinator()  # only process 0 writes
     timings = {} if timings is None else timings
     codec = load_tokenizer(vq_dir, dev)
     gcfg = dataclasses.replace(gcfg, tokens=codec.cfg.code_dim, vq_depth=codec.cfg.depth)
-    os.makedirs(save_dir, exist_ok=True)
-    save_config(save_dir, guide=gcfg, data=datacfg, train=tcfg)
+    if coord:
+        os.makedirs(save_dir, exist_ok=True)
+        save_config(save_dir, guide=gcfg, data=datacfg, train=tcfg)
 
     stats = find_stats(os.path.join(data_root, datacfg.person))
     model = GuideTransformer(gcfg)
@@ -89,6 +101,7 @@ def train(
     last, _ = checkpoints.try_resume(ckpt_dir, state)
     if last is not None:
         print(f"resumed from step {last}", flush=True)
+    replicated(model)
 
     feature_cache = None
     if cache_audio_features:
@@ -104,29 +117,34 @@ def train(
         out = {k: torch.from_numpy(np.asarray(v)) for k, v in b.items() if k in BATCH_KEYS}
         return {k: v.pin_memory() for k, v in out.items()} if pin else out
 
-    batches, _ = make_train_iterator(data_root, stats, datacfg, seed=tcfg.seed, start_step=state.step,
-                                     num_steps=tcfg.num_steps, feature_cache=feature_cache, reader=reader,
-                                     transform=to_tensors)
+    local = dataclasses.replace(datacfg, batch_size=dist.local_batch_size(datacfg.batch_size))
+    batches, _ = make_train_iterator(data_root, stats, local, seed=dist.per_process_seed(tcfg.seed),
+                                     start_step=state.step, num_steps=tcfg.num_steps, feature_cache=feature_cache,
+                                     reader=reader, transform=to_tensors)
 
     def save(step: int) -> None:
-        checkpoints.save_train_state(ckpt_dir, step, state)
-        checkpoints.save_model(save_dir, model)
+        if coord:
+            checkpoints.save_train_state(ckpt_dir, step, state)
+            checkpoints.save_model(save_dir, model)
 
-    logger = KVLogger(save_dir, tensorboard=True)
+    logger = KVLogger(save_dir, tensorboard=True) if coord else None
     try:
         for i in range(state.step, tcfg.num_steps):
             t0 = time.perf_counter()
-            batch = {k: v.to(dev, non_blocking=True) for k, v in next(batches).items()}
-            metrics = guide_train_step(state, codec, batch, torch.Generator().manual_seed(step_seed(tcfg.seed, i)))
+            batch = dist.shard_batch_global(mesh, next(batches))
+            metrics = guide_train_step(state, codec, batch, torch.Generator().manual_seed(step_seed(tcfg.seed, i)),
+                                       mesh=mesh)
             timings.setdefault("step_s", []).append(time.perf_counter() - t0)
-            if i % tcfg.log_interval == 0:
+            if i % tcfg.log_interval == 0 and logger is not None:
                 logger.log(i, metrics)
             if (i + 1) % tcfg.save_interval == 0:
                 save(i + 1)
         save(tcfg.num_steps)
+        dist.barrier()  # the run is saved when train() returns on any process
     finally:
         batches.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
 
 
@@ -148,8 +166,11 @@ def main():
     p.add_argument("--cache_audio_features", action="store_true",
                    help="run the frozen wav2vec frontend once over the train split and train on windows of "
                         "its features (data/feature_cache.py)")
-    p.add_argument("--device", default=None, help="torch device (default: cuda; raises without one)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda:{LOCAL_RANK}; raises without that card)")
+    dist.add_distributed_args(p)
     args = p.parse_args()
+    dist.initialize_from_args(args)  # before any device query
 
     gcfg = GuideConfig(latent_dim=args.dim, num_layers=args.layers, frontend_dtype=args.frontend_dtype)
     datacfg = DataConfig(person=args.person, data_format="pose", batch_size=args.batch_size,

@@ -17,13 +17,21 @@ windows, the codebooks' k-means and replacement rows) from generators
 seeded by (``--seed``, step).  Runs on the card unless ``device`` says
 otherwise; without a card and without ``device`` it raises.  The loader
 reads no audio: the codec sees the keyframes only (the JAX trainer's batches
-carry the windows' audio too).  The JAX CLI's ``--rng_impl`` and distributed
-flags are not ported (ROADMAP queue 1, items 6-7).
+carry the windows' audio too).  The JAX CLI's ``--rng_impl`` is not
+ported (ROADMAP queue 1).
+
+On N processes (the JAX CLI's distributed flags, ``parallel/distributed.py``)
+each loads its ``batch_size / N`` rows of every batch from its
+process-folded seed and the steps compute the global batch's step, the
+codebooks' k-means and EMA included (``models/vqvae.py``); only process 0
+evaluates, keeps ``ckpt_best/`` and writes the config, the checkpoints and
+the log.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import time
@@ -38,6 +46,9 @@ from audio2photoreal_tpu_torch.core.device import resolve_device
 from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
 from audio2photoreal_tpu_torch.data.loader import make_train_iterator, step_seed
 from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
+from audio2photoreal_tpu_torch.parallel import distributed as dist
+from audio2photoreal_tpu_torch.parallel.mesh import data_mesh
+from audio2photoreal_tpu_torch.parallel.sharding import replicated
 from audio2photoreal_tpu_torch.train import checkpoints
 from audio2photoreal_tpu_torch.train.logging import KVLogger
 from audio2photoreal_tpu_torch.train.loops import huber, vq_train_step
@@ -82,11 +93,16 @@ def train(
     """Train ``tcfg.num_steps`` steps (resuming from ``save_dir/ckpt``) and
     return the state.  ``timings``, when given, receives each step's wall
     seconds under ``step_s`` (a step ends in a read-back, so each is
-    complete) and each evaluation's under ``eval_s``."""
-    dev = resolve_device(device)
+    complete) and each evaluation's under ``eval_s``.  In a process group
+    ``datacfg.batch_size`` is the global batch, and ``device`` defaults to
+    this process's card."""
+    dev = resolve_device(device) if device is not None else dist.local_device()
+    mesh = data_mesh(datacfg.batch_size, dev)
+    coord = dist.is_coordinator()  # only process 0 evaluates and writes
     timings = {} if timings is None else timings
-    os.makedirs(save_dir, exist_ok=True)
-    save_config(save_dir, vq=vcfg, data=datacfg, train=tcfg)
+    if coord:
+        os.makedirs(save_dir, exist_ok=True)
+        save_config(save_dir, vq=vcfg, data=datacfg, train=tcfg)
 
     stats = find_stats(os.path.join(data_root, datacfg.person))
     val_ds = SocialDataset(load_local_data(data_root, datacfg.person), stats, datacfg, "val")
@@ -99,29 +115,33 @@ def train(
     best = float(extra.get("best", math.inf))
     if last is not None:
         print(f"resumed from step {last}", flush=True)
+    replicated(model)
 
     def keyframes(b):  # in the worker
         kf = torch.from_numpy(np.asarray(b["keyframes"]))
         return kf.pin_memory() if dev.type == "cuda" else kf
 
-    batches, _ = make_train_iterator(data_root, stats, datacfg, seed=tcfg.seed, start_step=state.step,
-                                     num_steps=tcfg.num_steps, reader=reader, transform=keyframes, audio=False)
+    local = dataclasses.replace(datacfg, batch_size=dist.local_batch_size(datacfg.batch_size))
+    batches, _ = make_train_iterator(data_root, stats, local, seed=dist.per_process_seed(tcfg.seed),
+                                     start_step=state.step, num_steps=tcfg.num_steps, reader=reader,
+                                     transform=keyframes, audio=False)
 
     def save(step: int) -> None:
-        checkpoints.save_train_state(ckpt_dir, step, state, extra={"best": best})
-        checkpoints.save_model(save_dir, model)
+        if coord:
+            checkpoints.save_train_state(ckpt_dir, step, state, extra={"best": best})
+            checkpoints.save_model(save_dir, model)
 
-    logger = KVLogger(save_dir, tensorboard=True)
+    logger = KVLogger(save_dir, tensorboard=True) if coord else None
     try:
         for i in range(state.step, tcfg.num_steps):
             t0 = time.perf_counter()
-            batch = {"keyframes": next(batches).to(dev, non_blocking=True)}
+            batch = dist.shard_batch_global(mesh, {"keyframes": next(batches)})
             metrics = vq_train_step(state, batch, torch.Generator(device=dev).manual_seed(step_seed(tcfg.seed, i)),
-                                    vcfg.commit_weight)
+                                    vcfg.commit_weight, mesh=mesh)
             timings.setdefault("step_s", []).append(time.perf_counter() - t0)
-            if i % tcfg.log_interval == 0:
+            if i % tcfg.log_interval == 0 and logger is not None:
                 logger.log(i, metrics)
-            if (i + 1) % tcfg.save_interval == 0:
+            if (i + 1) % tcfg.save_interval == 0 and coord:
                 t0 = time.perf_counter()
                 val = evaluate(model, val_ds)
                 timings.setdefault("eval_s", []).append(time.perf_counter() - t0)
@@ -133,9 +153,11 @@ def train(
                     checkpoints.save_model(best_dir, model)
                 save(i + 1)
         save(tcfg.num_steps)
+        dist.barrier()  # the run is saved when train() returns on any process
     finally:
         batches.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
 
 
@@ -151,8 +173,11 @@ def main():
     p.add_argument("--output_emb_width", type=int, default=64)
     p.add_argument("--depth", type=int, default=4)
     p.add_argument("--save_interval", type=int, default=10_000)
-    p.add_argument("--device", default=None, help="torch device (default: cuda; raises without one)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda:{LOCAL_RANK}; raises without that card)")
+    dist.add_distributed_args(p)
     args = p.parse_args()
+    dist.initialize_from_args(args)  # before any device query
 
     vcfg = VQConfig(nfeats=104, emb_width=args.output_emb_width, code_dim=args.code_dim, depth=args.depth)
     datacfg = DataConfig(person=args.person, data_format="pose", batch_size=args.batch_size)

@@ -12,8 +12,11 @@ hands out windows of them in place of raw audio:
   windows of ``seg_tokens`` tokens (2000 by default, about 600 frames) whose
   convolution windows tile the stream exactly, with masked moments over the
   real signal (``Wav2VecFeatureExtractor(audio, n_valid)``): the span of the
-  600-frame chunks that inference sees.  Every window has the same shape;
-  one all-zero window defines the silence response that pads a crop.
+  600-frame chunks that inference sees.  A scene's last window ends with
+  the scene (the JAX package's ``build_audio_feature_cache`` zero-pads it
+  to the others' shape, which its masked moments make no difference to); a short all-zero window defines
+  the silence response that pads a crop (every token of an all-zero window
+  is the same).
 - Face models also cache the lip regressor's vertices per frame from
   channel 0, 120 frames a call (the last chunk zero-padded), and the model
   resizes a crop's vertices to its tokens (``FiLMDenoiser(...,
@@ -37,6 +40,7 @@ from audio2photoreal_tpu_torch.models.audio_encoder import feature_frames
 FRAME_QUANTUM = 3  # crop starts and lengths round to 3 frames = 10 feature hops
 TOKENS_PER_QUANTUM = 10
 FRAME_HOP_16K = 160
+SILENCE_TOKENS = 8  # the all-zero window whose middle token is the silence response
 RECEPTIVE_FIELD_16K = 465
 
 
@@ -130,9 +134,11 @@ def build_audio_feature_cache(
     feats: List[np.ndarray] = []
     lips: Optional[List[np.ndarray]] = [] if lip_apply is not None else None
 
-    # one all-zero segment: the window shape and the silence response
+    # the silence response: valid convs without bias on a constant signal, moments over the whole window
     _, _, w48, m = _segment_windows_48k(seg_tokens * FRAME_HOP_16K * 3 + 2000, seg_tokens)
-    silence = np.asarray(frontend_apply(np.zeros((1, w48, 2), np.float32), w48))[0, m // 2].astype(np.float32)
+    _, _, w_sil, _ = _segment_windows_48k(0, SILENCE_TOKENS)
+    silence = np.asarray(frontend_apply(np.zeros((1, w_sil, 2), np.float32), w_sil))[0, SILENCE_TOKENS // 2]
+    silence = silence.astype(np.float32)
     lip_silence = None
     if lip_apply is not None:
         lv = np.asarray(lip_apply(np.zeros((1, lip_chunk, 1600), np.float32)))
@@ -145,11 +151,8 @@ def build_audio_feature_cache(
         scene = np.empty((total_tokens, silence.shape[0]), dtype)
         for i in range(n_seg):
             s0 = i * m * FRAME_HOP_16K * 3
-            win = audio[s0 : s0 + w48]
-            n_valid = win.shape[0]
-            if n_valid < w48:
-                win = np.pad(win, ((0, w48 - n_valid), (0, 0)))
-            out = np.asarray(frontend_apply(win[None], n_valid))[0]
+            win = audio[s0 : s0 + w48]  # the last one ends with the scene
+            out = np.asarray(frontend_apply(win[None], win.shape[0]))[0]
             lo, hi = i * m, min((i + 1) * m, total_tokens)
             scene[lo:hi] = out[: hi - lo]
         feats.append(scene)

@@ -62,6 +62,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 _U32 = 0xFFFFFFFF
 # the mix's multipliers (flash.py:100-107)
 _C_SEED, _C_BLOCK, _C_ROW, _C_COL, _C_MIX2 = 2654435761, 40503, 3266489917, 668265263, 668265263
+_C_SEED_INV = pow(_C_SEED, -1, 2**32)
 _DROPOUT_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int]
 
 
@@ -162,6 +163,16 @@ def hash_bits(seed: int, block_id, rows, cols) -> torch.Tensor:
     h = ((seed & _U32) * _C_SEED) & _U32
     h = h + u32_mul(as_t(block_id), _C_BLOCK) + u32_mul(as_t(rows), _C_ROW) + u32_mul(as_t(cols), _C_COL)
     return u32_mix(h & _U32)
+
+
+def shard_seed(seed: int, block_offset: int = 0, row_offset: int = 0) -> int:
+    """The seed whose ``hash_bits`` at (block, row) are ``seed``'s at (block +
+    ``block_offset``, row + ``row_offset``): the mix is linear in the three
+    terms before its first shift, and the seed's multiplier is odd, so
+    seed' = seed + (block_offset·C_block + row_offset·C_row)·C_seed⁻¹ mod
+    2³².  A rank holding rows r·B/N.. of a batch replays the global batch's
+    mask under it, with no change to the kernels."""
+    return (seed + (block_offset * _C_BLOCK + row_offset * _C_ROW) * _C_SEED_INV) & _U32
 
 
 def hash_mask_mult(seed: int, block_id, rows, cols, rate: float) -> torch.Tensor:

@@ -24,7 +24,10 @@ on every sublayer output before its FiLM gate.  It is active in training
 mode (``nn.Module.training``) and draws from the ``generator`` handed down
 the call: one seed per call site, as the JAX package folds one key per site.
 With ``hash_dropout`` the masks are ``hash_drop_mult``'s position hash, else
-Bernoulli draws.
+Bernoulli draws.  Under a data-parallel step (``parallel/sharding.py``) a
+rank's masks are its rows of the global batch's: a hash by a seed offset
+to its first row (the batch is dim 0 of every tensor dropped here), a
+Bernoulli draw made for the global batch and cut to its rows.
 
 Every module takes a compute ``dtype`` (the JAX modules' flax ``dtype=``):
 its parameters stay f32 and are cast per call, with its inputs, by
@@ -42,9 +45,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention, hash_bits
+from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention, hash_bits, resolve_block_q, shard_seed
 from audio2photoreal_tpu_torch.ops.attention import NEG_INF, dot_product_attention
 from audio2photoreal_tpu_torch.ops.rotary import RotaryTable, apply_rotary
+from audio2photoreal_tpu_torch.parallel import sharding
 
 INT32_MAX = 2**31 - 1
 
@@ -110,6 +114,13 @@ def hash_drop_mult(seed: int, shape, rate: float, dtype=torch.float32, device=No
     return keep * (one / torch.tensor(1.0 - rate, dtype=dtype, device=device))
 
 
+def _empty_in_layout_of(x: torch.Tensor, shape) -> torch.Tensor:
+    """An empty tensor of ``shape`` whose dims lie in memory in ``x``'s order
+    (``empty_like`` at another size), so a draw fills it as it fills ``x``."""
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+    return x.new_empty([shape[d] for d in order]).permute(*[order.index(d) for d in range(x.dim())])
+
+
 class Dropout(nn.Module):
     """The JAX package's ``make_dropout`` (models/blocks.py:96):
     ``HashDropout`` (:81) with ``hash_dropout``, else ``nn.Dropout``'s
@@ -123,9 +134,12 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         if self.hash_dropout:
-            seed = draw_seed(generator, 2**32)
+            start, _ = sharding.rows(x.shape[0])
+            seed = shard_seed(draw_seed(generator, 2**32), row_offset=start * math.prod(x.shape[1:]))
             return x * hash_drop_mult(seed, x.shape, self.rate, x.dtype, x.device)
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.rate, generator=device_generator(generator, x.device))
+        gen = device_generator(generator, x.device)
+        keep = sharding.draw_global(lambda s: _empty_in_layout_of(x, s).bernoulli_(1.0 - self.rate, generator=gen),
+                                    x.shape)
         return x * keep / (1.0 - self.rate)
 
 
@@ -207,7 +221,10 @@ class MultiHeadAttention(nn.Module):
         if self.flash and bias is None and min(Tq, k.shape[1]) >= self.FLASH_MIN_LEN:
             qkv = [self._split(x) for x in (q, k, v)]  # strided views: the kernel reads them as they are
             if rate > 0.0:
-                out = flash_attention(*qkv, None, False, rate, draw_seed(generator))
+                start, _ = sharding.rows(B)  # the mask's block (b·H + h)·nj + q-block at this rank's global b
+                nj = -(-Tq // resolve_block_q(Tq, k.shape[1]))
+                out = flash_attention(*qkv, None, False, rate,
+                                      shard_seed(draw_seed(generator), block_offset=start * self.heads * nj))
             else:
                 out = flash_attention(*qkv)
         else:

@@ -68,6 +68,7 @@ from audio2photoreal_tpu_torch.models.lip_regressor import LipRegressor
 from audio2photoreal_tpu_torch.ops.convs import conv1d, valid_conv1d
 from audio2photoreal_tpu_torch.ops.embeddings import sinusoidal_pos_emb
 from audio2photoreal_tpu_torch.ops.rotary import RotaryTable, apply_rotary, make_rotary_table
+from audio2photoreal_tpu_torch.parallel import sharding
 
 
 class CondTokens(NamedTuple):
@@ -109,13 +110,15 @@ def _checkpointed(layer: FiLMDecoderLayer, h, t_vec, cross_kv, pose_tokens, rota
     recompute draw the same dropout from copies of ``generator``, which
     then stands where the plain forward would leave it."""
     start, end = (None if generator is None else generator.get_state()), {}
+    mesh = sharding.bound_mesh()  # the recompute, in the backward, draws this rank's masks too
 
     def run(h, t_vec, k, v, pose_tokens):
         g = None
         if start is not None:
             g = torch.Generator(device=generator.device)
             g.set_state(start)
-        out = layer(h, t_vec, (k, v), pose_tokens, rotary=rotary, generator=g)
+        with sharding.bind(mesh):
+            out = layer(h, t_vec, (k, v), pose_tokens, rotary=rotary, generator=g)
         if g is not None:
             end.setdefault("state", g.get_state())
         return out
@@ -391,7 +394,8 @@ class FiLMDenoiser(nn.Module):
         cond = self.encode_conditioning(audio, keyframes, keyframe_valid, generator, lip_verts, audio_features)
         B = x.shape[0]
         if cond_drop_prob > 0.0:
-            u = torch.rand((2, B), generator=generator).to(x.device)
+            # the global batch's draw under a data-parallel step, this rank's columns of it
+            u = sharding.draw_global(lambda s: torch.rand(s, generator=generator), (2, B), dim=1).to(x.device)
             keep, keep_pose = u[0] >= cond_drop_prob, u[1] >= cond_drop_prob
         else:
             keep = keep_pose = torch.ones((B,), dtype=torch.bool, device=x.device)

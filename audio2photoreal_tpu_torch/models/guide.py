@@ -38,6 +38,7 @@ from audio2photoreal_tpu_torch.models.blocks import Dropout, FiLMDecoderLayer
 from audio2photoreal_tpu_torch.models.film_transformer import DecoderStack
 from audio2photoreal_tpu_torch.ops.attention import causal_bias
 from audio2photoreal_tpu_torch.ops.rotary import RotaryTable, make_rotary_table
+from audio2photoreal_tpu_torch.parallel import sharding
 
 NULL_EMBED_LEN = 2048  # rows of null_cond_embed, sliced to the cond length (JAX guide.py:92)
 
@@ -210,7 +211,8 @@ class GuideTransformer(nn.Module):
         ``encode_conditioning``."""
         keep = keep_mask
         if keep is None and cond_drop_prob > 0.0:
-            keep = (torch.rand((tokens.shape[0],), generator=generator) >= cond_drop_prob).to(tokens.device)
+            u = sharding.draw_global(lambda s: torch.rand(s, generator=generator), (tokens.shape[0],))
+            keep = (u >= cond_drop_prob).to(tokens.device)
         cond = self.encode_conditioning(audio, keep, generator, audio_features)
         return self.decode_logits(tokens, cond, generator)
 

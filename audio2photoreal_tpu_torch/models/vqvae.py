@@ -20,9 +20,14 @@ a state_dict from JAX params and a ``VQState``.
 
 Every random row a training forward draws (k-means' initial means,
 dead-code replacements) comes from ``draw_rows``, so a test can hand in
-JAX's indices.  The codebook all-reduce of data-parallel training
-(``pmean_state``) is not ported (ROADMAP queue 1, item 7): on one device it
-is the identity.
+JAX's indices.  Under a data-parallel step (``parallel/sharding.py``) the
+codebooks are those of the global batch: the EMA's counts and sums are
+summed over the ranks, and the k-means init and the dead-code rows run on
+the ranks' rows gathered in rank order, from the same generator on every
+rank, so every rank makes the same codebooks.  (A mean of per-rank k-means
+results, the JAX package's ``pmean_state`` read literally, is not the
+global k-means its sharded step computes.)  The perplexity counts the
+global batch's codes.
 """
 
 from __future__ import annotations
@@ -34,6 +39,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from audio2photoreal_tpu_torch.core.config import VQConfig
+from audio2photoreal_tpu_torch.parallel.collectives import all_gather, psum, psum_tensors
+from audio2photoreal_tpu_torch.parallel.mesh import DATA_AXIS
+from audio2photoreal_tpu_torch.parallel.sharding import rows
 
 
 def _quantize_one(embed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -97,12 +105,15 @@ def _ema_layer_update(embed: torch.Tensor, embed_avg: torch.Tensor, cluster_size
                       x: torch.Tensor, onehot: torch.Tensor, cfg: VQConfig,
                       generator: Optional[torch.Generator]):
     """One codebook's dead-code expiry, then its EMA (vqvae.py:157-224) ->
-    (embed, embed_avg, cluster_size).  x [N, dim], onehot [N, codes]."""
-    counts = onehot.sum(0)
-    sums = onehot.T @ x
+    (embed, embed_avg, cluster_size).  x [N, dim], onehot [N, codes]: this
+    rank's rows under a data-parallel step, whose counts and sums are summed
+    over the ranks and whose replacement rows are drawn from the gathered
+    global rows."""
+    counts, sums = psum_tensors([onehot.sum(0), onehot.T @ x], DATA_AXIS)
     # dead-code expiry BEFORE the EMA update, like the reference (:212-215)
     expired = cluster_size < cfg.threshold_ema_dead_code
-    embed = torch.where(expired[:, None], _sample_vectors(x, embed.shape[0], generator), embed)
+    rows_all = all_gather(x, DATA_AXIS, tiled=True)
+    embed = torch.where(expired[:, None], _sample_vectors(rows_all, embed.shape[0], generator), embed)
     cluster_size = cluster_size * cfg.decay + counts * (1 - cfg.decay)
     embed_avg = embed_avg * cfg.decay + sums * (1 - cfg.decay)
     n = cluster_size.sum()
@@ -126,7 +137,7 @@ def residual_quantize(x: torch.Tensor, quantizer: "ResidualQuantizer", cfg: VQCo
         todo = torch.stack([cb.inited for cb in books]).flatten() == 0
         if todo.any():  # one read of the flags a step
             with torch.no_grad():
-                residual = x.detach()
+                residual = all_gather(x.detach(), DATA_AXIS, tiled=True)  # the global batch's rows
                 for cb, init in zip(books, todo.tolist()):
                     if init:
                         means, bins = kmeans(residual, cfg.code_dim, cfg.kmeans_iters, generator)
@@ -164,8 +175,10 @@ def residual_quantize(x: torch.Tensor, quantizer: "ResidualQuantizer", cfg: VQCo
 
 
 def perplexity(codes: torch.Tensor, num_codes: int) -> torch.Tensor:
-    """Codebook usage perplexity (vqvae.py:523-534)."""
-    prob = torch.bincount(codes.reshape(-1), minlength=num_codes).float() / codes.numel()
+    """Codebook usage perplexity (vqvae.py:523-534), of the global batch's
+    codes under a data-parallel step."""
+    n = rows(codes.shape[0])[1] * (codes.numel() // max(codes.shape[0], 1))
+    prob = psum(torch.bincount(codes.reshape(-1), minlength=num_codes).float(), DATA_AXIS) / n
     return torch.exp(-(prob * torch.log(prob + 1e-7)).sum())
 
 

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from audio2photoreal_tpu_torch.parallel import sharding
+
 NEG_INF = -1e9  # large-negative, not -inf: a fully masked row stays NaN-free
 
 
@@ -46,6 +48,8 @@ def dot_product_attention(
         logits = logits + bias
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_rate > 0.0:
-        keep = torch.empty_like(probs).bernoulli_(1.0 - dropout_rate, generator=generator)
+        # made for the global batch under a data-parallel step (parallel/sharding.py)
+        keep = sharding.draw_global(
+            lambda s: probs.new_empty(s).bernoulli_(1.0 - dropout_rate, generator=generator), probs.shape)
         probs = probs * keep / (1.0 - dropout_rate)
     return torch.matmul(probs, v)

@@ -38,6 +38,7 @@ import torch
 import torch.nn as nn
 
 from audio2photoreal_tpu_torch.kernels.display_pack import finalize_display
+from audio2photoreal_tpu_torch.parallel import sharding
 from audio2photoreal_tpu_torch.render.blocks import ConvBlock, ConvDownBlock, UpConvBlockDeep, UpscaleNet
 from audio2photoreal_tpu_torch.render.calibration import CalV5, CameraPixelBias, LearnableBlur
 from audio2photoreal_tpu_torch.render.face import FaceDecoderFrontal
@@ -328,8 +329,10 @@ class BodyAvatar(nn.Module):
         eps_body = eps_face = None
         if posterior_noise:
             B, dev = geom.shape[0], geom.device
-            eps_body = draw_posterior_noise((B, self.cfg.n_embs), generator, dev)
-            eps_face = draw_posterior_noise((B, self.cfg.n_face_embs), generator, dev)
+            # under a data-parallel step, this rank's rows of the global batch's draws
+            draw = lambda s: draw_posterior_noise(s, generator, dev)  # noqa: E731
+            eps_body = sharding.draw_global(draw, (B, self.cfg.n_embs))
+            eps_face = sharding.draw_global(draw, (B, self.cfg.n_face_embs))
         enc = self.encoder(a.geo.to_uv(verts_unposed), a.non_head_mask, eps_body)
         face_enc = self.encoder_face(face_dec["face_geom"], face_dec["face_tex"], a.face_tex_mask, eps_face)
         return {**enc, **face_enc, "face_dec_preds": face_dec}

@@ -252,9 +252,36 @@ exception and a nonzero exit.
    tensor's largest element (bit-equal printed), the decoder's forward
    launches doubled, the backward's unchanged; then the face point at batch
    64, 4 steps each way, f32 and bf16: steps/s over steps 2-4, peak GB.
+31. data parallel (``parallel/``): two ranks, NCCL with a card each when
+   two cards are visible, else gloo with both on cuda:0 (NCCL refuses two
+   ranks on one card; the steps still run on the card), spawned and joined
+   through a file store; the backend, world size and card count printed
+   first.  (a) Two steps of each case on each rank's rows of the global
+   batch against the same steps on the whole batch in this process: pose
+   f32 (``DenoiserConfig()``, raw audio, hash dropout 0.1, batch 8), pose
+   bf16 (cached, batch 8: the ratio rule against the same step in f32),
+   the VQ (``VQConfig()``, batch 32: k-means in the first step, the EMA in
+   both), the guide (``GuideConfig()``, cached, batch 32, its Bernoulli
+   dropout) and the avatar (``RendererConfig(n_cameras=4)``, frame batch
+   4); the 1-process guide and avatar replay the ranks' leaky ReLU slopes,
+   the avatar their rasters (as 22 and 24 replay the card's): the train-parity bars on the first step,
+   the codebooks within 1e-5 of their scale, the ranks' parameters and
+   buffers bit-equal after both steps, each rank's attention and raster
+   launches.  The VQ step in a 1-rank NCCL group here, held to the
+   ungrouped step by the same bars, and NCCL's all-reduce of a buffer the
+   size of the pose model's gradients timed.  (b) ``train()``
+   through the trainer's distributed flags at the JAX training point (bf16
+   pose, cached, global batch 64), 4 steps, then resumed to 6: steps/s,
+   one more step profiled on each rank (device ms, idle), the gradients'
+   all-reduce timed, one log, one event file and one checkpoint (only the
+   coordinator writes).  (c) phase 8's renderer bundle on two devices (two
+   replicas on cuda:0 with one card) against one device, 16 frames, both
+   rendering 4 frames a call: within 1 count (against one device at frame
+   batch 8 printed: cuDNN's algorithms, and their rounding, move with the
+   batch).
 
 Then one line with every kernel's numbers (the raster's launches by path:
-the render, the demo and the avatar trainer; the f32 attention rows' bound
+the render, the demo, the avatar trainer and the data-parallel paths; the f32 attention rows' bound
 there is the 3xTF32 one, the arithmetic they do; the bf16 rows at the pose
 trainer's B64 600 x 2000 Dh 64 shape), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/.
@@ -3811,6 +3838,633 @@ def phase_main_path_train_avatar(seed: int, smi: str) -> int:
     return raster_launches
 
 
+# --------------------------------------------------------------------- #
+# data parallelism: 2 ranks against 1 process (parallel/, train/loops.py)
+# --------------------------------------------------------------------- #
+
+DP_WORLD = 2
+DP_BATCH = {"pose_f32": 8, "pose_bf16": 8, "vq": 32, "guide": GUIDE_BATCH, "avatar": AVATAR_TRAIN_BATCH}
+DP_STEPS = 2  # steps of each parity case: the ranks' parameters bit-equal after them
+DP_VQ_KEYFRAMES = 20
+DP_TRAIN_STEPS, DP_TRAIN_RESUMED = 4, 6  # train(): 4 steps, then resumed to 6
+DP_ALLREDUCE_REPEATS = 5
+DP_RENDER_FRAMES = 16
+
+
+def _dp_layout():
+    """(backend, cards): NCCL with a card a rank when there are enough,
+    else gloo with every rank on cuda:0 (NCCL refuses two ranks on one card)."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return ("nccl", DP_WORLD) if n >= DP_WORLD else ("gloo", 1)
+
+
+def _dp_case(name: str, seed: int):
+    """-> (model on the CPU, its TrainConfig, the global batch (numpy),
+    step(state, batch, i, mesh) -> metrics, the kernels whose launches the
+    step must show).  The same on every rank and in the 1-process run."""
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.core.config import DiffusionConfig, TrainConfig, VQConfig
+    from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
+    from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
+    from audio2photoreal_tpu_torch.kernels import flash_attn, raster
+    from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
+    from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets, synthetic_rig
+    from audio2photoreal_tpu_torch.train import loops
+
+    B, rng = DP_BATCH.get(name, 8), np.random.RandomState(seed + 90)
+    if name.startswith("pose"):  # pose_f32 (raw audio), pose_bf16 and pose_f32_cached (its f32 twin)
+        extra = dict(dtype="bfloat16", frontend_dtype="bfloat16") if name == "pose_bf16" else {}
+        cfg, model = _pose_model(seed + 90, dropout=TRAIN_DROPOUT, hash_dropout=True, **extra)
+        batch = _train_batch(rng, B, cfg.max_seq_length)
+        if name != "pose_f32":  # the feature cache's windows in place of the audio
+            del batch["audio"]
+            batch["audio_features"] = rng.rand(B, tokens_for_frames(cfg.max_seq_length), 1024).astype(np.float32)
+        dcfg, sched = DiffusionConfig(), {}
+
+        def step(state, b, i, mesh):
+            dev = b["motion"].device
+            sched.setdefault(dev, make_schedule().to_device(dev))
+            s = _dp_seed(seed, i)
+            return loops.diffusion_train_step(state, sched[dev], dcfg, b, torch.Generator().manual_seed(s),
+                                              torch.Generator(device=dev).manual_seed(s), mesh=mesh)[0]
+
+        names = (flash_attn.BF16_NAME, flash_attn.BF16_BWD_NAME) if name == "pose_bf16" else (
+            flash_attn.NAME, flash_attn.BWD_NAME)
+        return model.train(), TrainConfig(lr=LR), batch, step, names
+    if name == "vq":
+        model = TemporalVertexCodec(VQConfig())
+        model.reset_parameters(torch.Generator().manual_seed(seed + 91))
+        batch = {"keyframes": rng.randn(B, DP_VQ_KEYFRAMES, 104).astype(np.float32)}
+
+        def step(state, b, i, mesh):
+            dev = b["keyframes"].device
+            return loops.vq_train_step(state, b, torch.Generator(device=dev).manual_seed(_dp_seed(seed, i)),
+                                       mesh=mesh)
+
+        return model.train(), TrainConfig(lr=1e-3), batch, step, ()
+    if name == "guide":
+        guide, codec = _guide_models(seed + 92)
+        batch = _guide_batch(rng, True, B, GUIDE_FRAMES)
+
+        def step(state, b, i, mesh):
+            c = codec.to(b["keyframes"].device)
+            return loops.guide_train_step(state, c, b, torch.Generator().manual_seed(_dp_seed(seed, i)),
+                                          mesh=mesh)
+
+        return guide.train(), TrainConfig(lr=2e-4, grad_clip=1.0), batch, step, ()
+    if name == "avatar":
+        cfg = _avatar_cfg()
+        assets = make_synthetic_assets(cfg, seed=seed, mesh_density=10)
+        model = _avatar_model(cfg, assets, seed + 93)
+        cams = synthetic_rig((0.0, 0.0, 1.0), cfg.image_height, cfg.image_width, angles=AVATAR_ANGLES)
+        batch = _avatar_frames(assets, cams, [k % AVATAR_CAMERAS for k in range(B)], rng, cfg)
+
+        def step(state, b, i, mesh):
+            dev = b["motion"].device
+            return loops.avatar_train_step(state, b, torch.Generator(device=dev).manual_seed(_dp_seed(seed, i)),
+                                           mesh=mesh)
+
+        return model.train(), TrainConfig(lr=AVATAR_LR), batch, step, (raster.NAME,)
+    raise ValueError(name)
+
+
+def _dp_seed(seed: int, i: int) -> int:
+    """The seed of step ``i``'s generators, the same in every run of a case."""
+    from audio2photoreal_tpu_torch.data.loader import step_seed
+
+    return step_seed(seed + 95, i)
+
+
+def _dp_slopes(record: list, replay=None):
+    """A stand-in for ``F.leaky_relu`` that records each call's slopes
+    ((x > 0), on the card) into ``record`` or, given ``replay`` (the ranks'
+    recorded slopes, one list a rank), replays them in call order: a call
+    whose input holds the global batch takes the ranks' masks side by side
+    on dim 0, a call without a batch axis rank 0's.  ``record`` then counts
+    the 1-process pre-activations that would have taken the other slope."""
+    import torch
+    import torch.nn.functional as F
+
+    real = F.leaky_relu
+
+    def slopes(x, negative_slope=0.01, inplace=False):
+        if replay is None:
+            record.append((x > 0).detach())
+            return real(x, negative_slope, inplace)
+        i = len(record)
+        parts = [r[i] for r in replay]
+        keep = torch.cat(parts, 0) if sum(p.shape[0] for p in parts) == x.shape[0] else parts[0]
+        keep = keep.to(x.device).reshape(x.shape)
+        record.append(int(((x > 0) != keep).sum()))
+        return torch.where(keep, x, x * negative_slope)
+
+    return real, slopes
+
+
+def _dp_raster(record: list, replay=None):
+    """A stand-in for ``rasterizer.rasterize`` that records each call's
+    outputs into ``record`` (on the host) or, given ``replay`` (the ranks'
+    recorded outputs, one list a rank), hands out the ranks' outputs side
+    by side on dim 0 in call order, as the 1-process step would see the
+    ranks' rasters: the projected vertices come from the decoder, whose
+    rounding moves with the batch, so an edge pixel can change face.
+    ``record`` then counts the pixels whose face the 1-process raster
+    would have changed."""
+    import torch
+
+    from audio2photoreal_tpu_torch.render import rasterizer
+
+    real = rasterizer.rasterize
+
+    def raster(pix, depth, faces, height, width, face_uv=None, emit_barys=None):
+        out = real(pix, depth, faces, height, width, face_uv, emit_barys)
+        if replay is None:
+            record.append(type(out)(*(None if t is None else t.cpu() for t in out)))
+            return out
+        parts = [r[len(record)] for r in replay]
+        got = type(out)(*(None if p[0] is None else torch.cat(p, 0).to(pix.device) for p in zip(*parts)))
+        record.append(int((got.face_index != out.face_index).sum()))
+        return got
+
+    return real, raster
+
+
+def _pack(masks) -> list:
+    import numpy as np
+
+    return [(tuple(m.shape), np.packbits(m.cpu().numpy().reshape(-1))) for m in masks]
+
+
+def _unpack(packed) -> list:
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(np.unpackbits(bits, count=int(np.prod(shape))).astype(bool).reshape(shape))
+            for shape, bits in packed]
+
+
+def _digest(tensors: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().cpu().contiguous().view(-1).view(dtype=__import__("torch").uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _dp_run(name: str, seed: int, device, mesh) -> dict:
+    """``DP_STEPS`` steps of case ``name`` on ``device``: the global batch
+    (``mesh`` None) or ``mesh``'s rows of it; the metrics, the first step's
+    gradients and parameters, the parameters' and buffers' digest after the
+    last step, the kernels' launches."""
+    import torch
+
+    from audio2photoreal_tpu_torch.kernels import launch_counts
+    from audio2photoreal_tpu_torch.parallel.sharding import shard_batch
+    from audio2photoreal_tpu_torch.train.state import TrainState
+
+    model, tcfg, batch, step, kernels = _dp_case(name, seed)
+    state = TrainState(model.to(device), tcfg)
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    batch = shard_batch(mesh, batch) if mesh is not None else {k: v.to(device) for k, v in batch.items()}
+    out = {"metrics": [], "launches": {}}
+    launch_counts.clear()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for i in range(DP_STEPS):
+        out["metrics"].append(step(state, batch, i, mesh))
+        if i == 0:
+            out["grads"] = {n: p.grad.detach().cpu() for n, p in model.named_parameters() if p.grad is not None}
+            out["params"] = {n: p.detach().cpu() for n, p in model.named_parameters()}
+            out["buffers"] = {n: b.detach().cpu() for n, b in model.named_buffers()}
+    torch.cuda.synchronize(device)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: launch_counts[k] for k in kernels}
+    out["buffers_last"] = {n: b.detach().cpu() for n, b in model.named_buffers()}
+    out["digest"] = _digest({**dict(model.named_parameters()), **dict(model.named_buffers())})
+    return out
+
+
+def _dp_rank(rank: int, world: int, flags: list, task: str, seed: int, out_dir: str) -> None:
+    """One rank of the data-parallel phase (a spawned process): the group
+    from the trainer flags ``flags``, then ``task``; its results to
+    ``out_dir/<task>_rank<rank>.pt``."""
+    sys.path.insert(0, ROOT)
+    import argparse
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from audio2photoreal_tpu_torch.parallel import distributed as dist
+
+    p = argparse.ArgumentParser()
+    dist.add_distributed_args(p)
+    args = p.parse_args(flags + ["--process_id", str(rank)])
+    dist.initialize_from_args(args)
+    dev = dist.local_device()
+    torch.cuda.set_device(dev)
+    try:
+        res = _dp_parity_rank(seed, dev) if task == "parity" else _dp_train_rank(seed, dev)
+        res.update(rank=rank, device=str(dev), backend=torch.distributed.get_backend())
+        torch.save(res, os.path.join(out_dir, f"{task}_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _dp_parity_rank(seed: int, dev) -> dict:
+    import torch.nn.functional as F
+
+    from audio2photoreal_tpu_torch.parallel.mesh import data_mesh
+
+    from audio2photoreal_tpu_torch.render import rasterizer
+
+    res = {}
+    for name in DP_BATCH:
+        slopes, rasters = [], []
+        real, F.leaky_relu = _dp_slopes(slopes)
+        real_raster, rasterizer.rasterize = _dp_raster(rasters)
+        try:
+            res[name] = _dp_run(name, seed, dev, data_mesh(DP_BATCH[name], dev))
+        finally:
+            F.leaky_relu, rasterizer.rasterize = real, real_raster
+        if name in ("guide", "avatar"):
+            res[name]["slopes"] = _pack(slopes)
+        if rasters:
+            res[name]["rasters"] = rasters
+        del slopes, rasters
+    return res
+
+
+def _dp_train_rank(seed: int, dev) -> dict:
+    """``train()`` at the JAX training point on this rank's rows:
+    ``DP_TRAIN_STEPS`` steps from a clean dir (rank 0 then lists what was
+    written), one more DDP step profiled, the gradients' all-reduce timed,
+    then ``train()`` again to ``DP_TRAIN_RESUMED``: a fresh model resumed
+    from the checkpoint."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio2photoreal_tpu_torch.apps.train_diffusion import train
+    from audio2photoreal_tpu_torch.core.config import DataConfig, DenoiserConfig, DiffusionConfig, TrainConfig
+    from audio2photoreal_tpu_torch.data.feature_cache import tokens_for_frames
+    from audio2photoreal_tpu_torch.diffusion.schedules import make_schedule
+    from audio2photoreal_tpu_torch.kernels import flash_attn, launch_counts
+    from audio2photoreal_tpu_torch.parallel import collectives, sharding
+    from audio2photoreal_tpu_torch.parallel.mesh import data_mesh
+    from audio2photoreal_tpu_torch.train import checkpoints
+    from audio2photoreal_tpu_torch.train.loops import diffusion_train_step
+
+    root, save_dir = _train_person(seed), os.path.join(WORK, "dp_train")
+    mcfg = DenoiserConfig(data_format="pose", flash_attention=True, hash_dropout=True, dtype="bfloat16",
+                          frontend_dtype="bfloat16")
+    datacfg = DataConfig(person="SYNTH01", data_format="pose", batch_size=TRAIN_BATCH,
+                         max_seq_length=mcfg.max_seq_length)
+    names = (flash_attn.BF16_NAME, flash_attn.BF16_BWD_NAME)
+
+    def run(steps: int):
+        tcfg = TrainConfig(lr=LR, num_steps=steps, log_interval=1, save_interval=10**9, seed=seed)
+        timings: dict = {}
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        state = train(root, save_dir, mcfg, DiffusionConfig(), datacfg, tcfg, cache_audio_features=True,
+                      timings=timings, reader="fastdata")
+        return state, dict(train_s=time.perf_counter() - t0, step_s=timings["step_s"], batch_s=timings["batch_s"],
+                           cache_s=timings.get("cache_s"), step=state.step,
+                           launches={k: launch_counts[k] for k in names},
+                           other_launches=sum(launch_counts.values()) - sum(launch_counts[k] for k in names),
+                           digest=_digest(dict(state.model.named_parameters())))
+
+    state, out = run(DP_TRAIN_STEPS)  # train() returns once every rank has, the checkpoint written
+    if torch.distributed.get_rank() == 0:
+        log = os.path.join(save_dir, "log.jsonl")
+        out["written"] = dict(log_lines=sum(1 for _ in open(log)),
+                              event_files=sum(f.startswith("events.") for f in os.listdir(save_dir)),
+                              ckpts=sorted(os.listdir(os.path.join(save_dir, "ckpt"))),
+                              latest_ckpt_step=checkpoints.latest_step(os.path.join(save_dir, "ckpt")))
+    # one more DDP step on this rank's rows, profiled; then the gradients' all-reduce alone
+    mesh = data_mesh(TRAIN_BATCH, dev)
+    local = TRAIN_BATCH // mesh.size
+    rng = np.random.RandomState(seed + 97 + mesh.index)
+    batch = _train_batch(rng, local, mcfg.max_seq_length)
+    del batch["audio"]
+    batch["audio_features"] = rng.rand(local, tokens_for_frames(mcfg.max_seq_length), 1024).astype(np.float32)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    sched = make_schedule().to_device(dev)
+    torch.distributed.barrier()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        diffusion_train_step(state, sched, DiffusionConfig(), batch, torch.Generator().manual_seed(7),
+                             torch.Generator(device=dev).manual_seed(7), mesh=mesh)
+        torch.cuda.synchronize(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in state.params]
+    n_floats = sum(g.numel() for g in grads)
+    ms = []
+    with sharding.bind(mesh):
+        for _ in range(DP_ALLREDUCE_REPEATS):
+            torch.distributed.barrier()
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            collectives.psum_tensors(grads, mesh.axis)
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t1) * 1e3)
+    out.update(profiled_step_wall_ms=wall_ms, profiled_step_device_ms=dev_ms,
+               device_idle_share=1.0 - dev_ms / wall_ms, allreduce_ms=ms, allreduce_floats=n_floats,
+               allreduce_mb=4 * n_floats / 1e6)
+    del state, grads, batch
+    torch.distributed.barrier()
+    _, out["resumed"] = run(DP_TRAIN_RESUMED)
+    return out
+
+
+def _dp_spawn(task: str, seed: int, backend: str) -> list:
+    """The ranks of ``task`` as spawned processes, joined through a file
+    store; -> each rank's results."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(WORK, "dp")
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, f"store_{task}")
+    for f in (store, *(os.path.join(out_dir, f"{task}_rank{r}.pt") for r in range(DP_WORLD))):
+        if os.path.exists(f):
+            os.remove(f)
+    flags = ["--coordinator_address", f"file://{store}", "--num_processes", str(DP_WORLD), "--dist_backend", backend]
+    mp.start_processes(_dp_rank, args=(DP_WORLD, flags, task, seed, out_dir), nprocs=DP_WORLD, start_method="spawn")
+    return [torch.load(os.path.join(out_dir, f"{task}_rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+
+
+def _dp_reference(name: str, seed: int, ranks: list) -> dict:
+    """The 1-process run of case ``name`` on cuda:0, replaying the ranks'
+    leaky ReLU slopes where they recorded them."""
+    import torch
+    import torch.nn.functional as F
+
+    from audio2photoreal_tpu_torch.render import rasterizer
+
+    replay = [_unpack(r[name]["slopes"]) for r in ranks] if "slopes" in ranks[0][name] else None
+    rasters = [r[name]["rasters"] for r in ranks] if "rasters" in ranks[0][name] else None
+    flips: list = []
+    moved: list = []
+    real, real_raster = F.leaky_relu, rasterizer.rasterize
+    if replay is not None:
+        _, F.leaky_relu = _dp_slopes(flips, replay)
+    if rasters is not None:
+        _, rasterizer.rasterize = _dp_raster(moved, rasters)
+    try:
+        ref = _dp_run(name, seed, torch.device("cuda", 0), None)
+    finally:
+        F.leaky_relu, rasterizer.rasterize = real, real_raster
+    if replay is not None:
+        ref.update(slope_calls=len(replay[0]), slope_calls_replayed=len(flips),
+                   slopes=sum(m.numel() for r in replay for m in r), slope_flips=sum(flips))
+    if rasters is not None:
+        ref.update(raster_calls=len(rasters[0]), raster_calls_replayed=len(moved), raster_face_changes=moved)
+    return ref
+
+
+def _dp_check(name: str, ref: dict, ranks: list, ref32: dict = None) -> tuple:
+    """The train-parity bars (PERF.md section 2) of rank 0's first step
+    against the 1-process step, the ranks' digests after ``DP_STEPS``
+    steps, their launches -> (numbers, checks)."""
+    import torch
+
+    r0 = ranks[0][name]
+    lr = {"vq": 1e-3, "guide": 2e-4, "avatar": AVATAR_LR}.get(name, LR)
+    bf16 = name == "pose_bf16"
+    loss_rel = [abs(r[name]["metrics"][i]["loss"] - ref["metrics"][i]["loss"]) / abs(ref["metrics"][i]["loss"])
+                for r in ranks for i in range(DP_STEPS)]
+    rels = sorted(((r0["grads"][n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30), n)
+                  for n, g in ref["grads"].items())
+    d = torch.cat([(r0["params"][n] - p).abs().flatten() for n, p in ref["params"].items()])
+    nums = dict(batch=DP_BATCH[name], steps=DP_STEPS, loss_1proc=[m["loss"] for m in ref["metrics"]],
+                loss_ranks=[[m["loss"] for m in r[name]["metrics"]] for r in ranks], loss_max_rel_err=max(loss_rel),
+                grad_norm_1proc=ref["metrics"][0]["grad_norm"], grad_norm_rank0=r0["metrics"][0]["grad_norm"],
+                grads_compared=len(ref["grads"]), grad_max_rel_err=rels[-1][0], worst_grad_tensors=rels[-3:],
+                param_max_abs_diff=d.max().item(), param_share_within_1e6=(d <= 1e-6).float().mean().item(),
+                launches_by_rank=[r[name]["launches"] for r in ranks], seconds_1proc=ref["seconds"],
+                seconds_ranks=[r[name]["seconds"] for r in ranks],
+                **{k: ref[k] for k in ("slope_calls", "slope_calls_replayed", "slopes", "slope_flips", "raster_calls",
+                                       "raster_calls_replayed", "raster_face_changes") if k in ref})
+    checks = {
+        "ranks_bit_equal_after_steps": len({r[name]["digest"] for r in ranks}) == 1,
+        "same_grad_names": sorted(r0["grads"]) == sorted(ref["grads"]),
+        "every_rank_launched_its_kernels": all(n > 0 for r in ranks for n in r[name]["launches"].values())
+        and all(r[name]["launches"] == ref["launches"] for r in ranks[1:]),
+    }
+    if bf16:
+        ratios = _grad_ratios(r0["grads"], ref["grads"], ref32["grads"])
+        flips = _adamw_sign_flips(r0, ref, ref32, ref["params"])
+        nums.update(grad_ratio_l2=ratios["l2"], grad_ratio_max=ratios["max"], params_past_2lr=len(flips),
+                    params_past_2lr_flipped_within_admitted=sum(
+                        f["flipped"] and f["abs_g_cpu_f32"] <= f["admitted_err"] and f["d"] <= 2 * lr + f["ulp"]
+                        for f in flips))
+        checks.update(loss=max(loss_rel) <= 1e-2, grads_ratio_rule=ratios["l2"][0] <= 1.0,
+                      params_within_2lr=nums["params_past_2lr"] == nums["params_past_2lr_flipped_within_admitted"])
+    else:
+        checks.update(loss=max(loss_rel) <= 1e-5, grads=rels[-1][0] <= 1e-4,
+                      params_within_2lr=d.max().item() <= 2 * lr, params_99_9_within_1e6=nums[
+                          "param_share_within_1e6"] >= 0.999)
+    if name == "vq":  # the EMA codebooks after each step: the global batch's, summed over the ranks' rows
+        errs = []
+        for key in ("buffers", "buffers_last"):
+            for n, b in ref[key].items():
+                if "_codebook." in n and b.is_floating_point():
+                    errs.append((r0[key][n] - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+        nums.update(codebook_max_rel_err=max(errs), perplexity_1proc=[m["perplexity"] for m in ref["metrics"]],
+                    perplexity_ranks=[[m["perplexity"] for m in r[name]["metrics"]] for r in ranks])
+        checks["codebooks"] = max(errs) <= VQ_REL_TOL
+    if "raster_calls" in ref:
+        checks["rasters_replayed"] = ref["raster_calls_replayed"] == ref["raster_calls"] == DP_STEPS
+    if "slopes" in ref:
+        checks["slopes_replayed"] = ref["slope_calls_replayed"] == ref["slope_calls"] > 0
+        checks["slope_flips"] = ref["slope_flips"] <= SLOPE_FLIP_SHARE * ref["slopes"]
+    return nums, checks
+
+
+def phase_data_parallel(seed: int, smi: str) -> dict:
+    """Two ranks (``parallel/``, ``train/loops.py``) against one process, on
+    the card: NCCL with a card a rank when there are two cards, else gloo
+    with both ranks on cuda:0; the VQ step in a 1-rank NCCL group in this
+    process too.
+    (a) step parity: ``DP_STEPS`` steps of each case on each rank's rows of
+    the global batch against the same steps on the whole batch: pose f32
+    (raw audio, hash dropout 0.1, batch 8), pose bf16 (cached, batch 8),
+    the VQ at ``VQConfig()`` (batch 32: k-means, then the EMA), the guide at
+    ``GuideConfig()`` (cached, batch 32, Bernoulli dropout 0.1) and the
+    avatar at ``RendererConfig(n_cameras=4)`` (frame batch 4); the
+    1-process guide and avatar replay the ranks' leaky ReLU slopes, the
+    avatar their rasters.  (b)
+    ``train()`` through the trainer's distributed flags at the JAX training
+    point (bf16 pose, cached, global batch 64), 4 steps, then resumed to 6;
+    steps/s, the ranks' device ms of one more step, the gradients'
+    all-reduce.  (c) the 2-device renderer against the 1-device one at the
+    same frames a call.
+    -> launches by path: train_ddp (each kernel, summed over the ranks of
+    (a)), render_ddp."""
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.apps.render_pipeline import load_body_renderer
+    from audio2photoreal_tpu_torch.kernels import display_pack, flash_attn, launch_counts, raster
+    from audio2photoreal_tpu_torch.parallel import collectives, sharding
+    from audio2photoreal_tpu_torch.parallel.mesh import data_mesh
+    from audio2photoreal_tpu_torch.train import checkpoints
+
+    backend, cards = _dp_layout()
+    t_phase = time.perf_counter()
+    emit("data_parallel", nvidia_smi=smi, backend=backend, world_size=DP_WORLD,
+         gpus_visible=torch.cuda.device_count(), ranks_per_card=DP_WORLD // cards,
+         note=None if cards == DP_WORLD else "one card visible: both ranks share cuda:0 over gloo, so times "
+         "below are not a scaling figure")
+
+    # (a) step parity
+    t0 = time.perf_counter()
+    ranks = _dp_spawn("parity", seed, backend)
+    spawn_s = time.perf_counter() - t0
+    launches = {}
+    failed = []
+    for name in DP_BATCH:
+        ref = _dp_reference(name, seed, ranks)
+        ref32 = _dp_run("pose_f32_cached", seed, torch.device("cuda", 0), None) if name == "pose_bf16" else None
+        nums, checks = _dp_check(name, ref, ranks, ref32)
+        emit("data_parallel_step_parity", case=name, backend=backend, world_size=DP_WORLD, **nums, checks=checks)
+        if not all(checks.values()):
+            failed.append((name, checks))
+        for r in ranks:
+            for k, n in r[name]["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        del ref, ref32
+    emit("data_parallel_ranks", spawn_and_run_s=spawn_s, devices=[r["device"] for r in ranks],
+         backends=[r["backend"] for r in ranks])
+    pose_floats = sum(g.numel() for g in ranks[0]["pose_bf16"]["grads"].values())
+    del ranks
+    if failed:
+        raise AssertionError(f"2 ranks disagree with 1 process: {failed}")
+
+    # the VQ step in a 1-rank NCCL group in this process: NCCL's init and all-reduce on the card, held
+    # to the ungrouped step by the f32 bars; then the all-reduce of a buffer of the pose model's gradients
+    store = os.path.join(WORK, "dp", "store_nccl1")
+    if os.path.exists(store):
+        os.remove(store)
+    torch.distributed.init_process_group("nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        alone = _dp_run("vq", seed, torch.device("cuda", 0), None)
+        mesh = data_mesh(DP_BATCH["vq"], "cuda:0")
+        grouped = _dp_run("vq", seed, torch.device("cuda", 0), mesh)
+        nums, checks = _dp_check("vq", alone, [{"vq": grouped}])
+        flat = torch.randn(pose_floats, device="cuda")
+        ms = []
+        with sharding.bind(mesh):
+            for _ in range(DP_ALLREDUCE_REPEATS):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                collectives.psum(flat, "data")
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+        nccl1 = dict(backend=torch.distributed.get_backend(), case="vq",
+                     bit_equal_to_ungrouped=alone["digest"] == grouped["digest"],
+                     allreduce_ms=ms, allreduce_mb=4 * pose_floats / 1e6,
+                     **{k: nums[k] for k in ("loss_max_rel_err", "grad_max_rel_err", "param_max_abs_diff",
+                                             "codebook_max_rel_err")})
+    finally:
+        torch.distributed.destroy_process_group()
+    checks = {k: v for k, v in checks.items() if k != "ranks_bit_equal_after_steps"}  # one rank
+    emit("data_parallel_nccl_one_rank", **nccl1, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"the 1-rank NCCL step disagrees with the ungrouped step: {checks}")
+
+    # (b) train() through the distributed flags, then resumed
+    _train_person(seed)  # made here, once, before the ranks read it
+    save_dir = os.path.join(WORK, "dp_train")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    run = _dp_spawn("train", seed, backend)
+    train_wall = time.perf_counter() - t0
+    written = run[0]["written"]
+    logged = [json.loads(l) for l in open(os.path.join(save_dir, "log.jsonl"))]
+    resumed = [r["resumed"] for r in run]
+    steady = [r["step_s"][1:] for r in run]
+    per_step = 2 * 8  # the pose model's 8 layers, two attentions each
+    checks = {
+        "losses_finite": len(logged) == DP_TRAIN_RESUMED and all(np.isfinite(r["loss"]) for r in logged),
+        "only_the_coordinator_wrote": written["log_lines"] == DP_TRAIN_STEPS and written["event_files"] == 1
+        and len(written["ckpts"]) == 1 and written["latest_ckpt_step"] == DP_TRAIN_STEPS,
+        "ranks_bit_equal": len({r["digest"] for r in run}) == 1 and len({r["digest"] for r in resumed}) == 1,
+        "every_rank_launched_the_bf16_kernels": all(
+            r["launches"] == {flash_attn.BF16_NAME: per_step * DP_TRAIN_STEPS,
+                              flash_attn.BF16_BWD_NAME: per_step * DP_TRAIN_STEPS} and r["other_launches"] == 0
+            for r in run),
+        "resumed": all(r["step"] == DP_TRAIN_RESUMED for r in resumed)
+        and checkpoints.latest_step(os.path.join(save_dir, "ckpt")) == DP_TRAIN_RESUMED
+        and all(r["launches"][flash_attn.BF16_NAME] == per_step * (DP_TRAIN_RESUMED - DP_TRAIN_STEPS)
+                for r in resumed),
+    }
+    emit("data_parallel_train", nvidia_smi=smi, backend=backend, world_size=DP_WORLD, global_batch=TRAIN_BATCH,
+         steps=DP_TRAIN_STEPS, wall_s=train_wall, train_s=[r["train_s"] for r in run],
+         resumed_train_s=[r["train_s"] for r in resumed],
+         steady_steps_per_s=[len(s) / sum(s) for s in steady],
+         steady_step_ms=[1e3 * sum(s) / len(s) for s in steady], batch_s=[r["batch_s"] for r in run],
+         cache_s=[r["cache_s"] for r in run], profiled_step_wall_ms=[r["profiled_step_wall_ms"] for r in run],
+         profiled_step_device_ms=[r["profiled_step_device_ms"] for r in run],
+         device_idle_share=[r["device_idle_share"] for r in run], allreduce_ms=[r["allreduce_ms"] for r in run],
+         allreduce_mb=run[0]["allreduce_mb"], losses=[r["loss"] for r in logged],
+         launches_by_rank=[r["launches"] for r in run], written=written,
+         scaling_note=None if cards == DP_WORLD else "both ranks share one card: steps/s is not a scaling figure",
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"data-parallel train() checks failed: {checks}")
+    for r in (*run, *resumed):
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+
+    # (c) the renderer on 2 devices against 1 at the same frames a call (cuDNN's algorithms, and so the
+    # rounding, move with the batch: the 1-device render at the whole frame batch is printed beside it)
+    devices = [f"cuda:{i % cards}" for i in range(DP_WORLD)]
+    rng = np.random.RandomState(seed + 98)
+    pose = (rng.randn(DP_RENDER_FRAMES, 104) * 0.05).astype(np.float32)
+    face = (rng.randn(DP_RENDER_FRAMES, 256) * 0.05).astype(np.float32)
+    bundle = os.path.join(WORK, "renderer")
+    two = load_body_renderer(bundle, frame_batch=RENDER_BATCH, devices=devices)
+    one = load_body_renderer(bundle, frame_batch=RENDER_BATCH // DP_WORLD, device="cuda")
+    whole = load_body_renderer(bundle, frame_batch=RENDER_BATCH, device="cuda")
+    t0 = time.perf_counter()
+    want = one.render_sequence_multicam(pose, face)
+    one_s = time.perf_counter() - t0
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    got = two.render_sequence_multicam(pose, face)
+    two_s = time.perf_counter() - t0
+    render = {k: launch_counts[k] for k in (raster.NAME, display_pack.NAME)}
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    diff_whole = np.abs(got.astype(np.int32) - whole.render_sequence_multicam(pose, face).astype(np.int32))
+    checks = {"shape": got.shape == want.shape and got.shape[0] == DP_RENDER_FRAMES,
+              "within_1_count": bool(diff.max() <= 1),
+              "every_replica_launched": render[raster.NAME] == 2 * len(one.cameras) * DP_RENDER_FRAMES // RENDER_BATCH}
+    emit("data_parallel_render", devices=devices, replicas_share_a_card=cards < DP_WORLD, frames=DP_RENDER_FRAMES,
+         frame_batch=two.frame_batch, frames_a_call=RENDER_BATCH // DP_WORLD, one_device_s=one_s,
+         two_device_s=two_s, max_count_diff=int(diff.max()), share_differing=float((diff > 0).mean()),
+         max_count_diff_vs_one_device_at_frame_batch_8=int(diff_whole.max()),
+         share_differing_vs_one_device_at_frame_batch_8=float((diff_whole > 0).mean()), launches=render,
+         checks=checks, phase_s=time.perf_counter() - t_phase)
+    if not all(checks.values()):
+        raise AssertionError(f"the 2-device renderer disagrees with the 1-device one: {checks}")
+    return {"train_ddp": launches, "render_ddp": render}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3865,6 +4519,14 @@ def main() -> None:
     phase_avatar_train_parity(args.seed)
     train_avatar = phase_main_path_train_avatar(args.seed, smi)
     phase_convert_reference_tree(args.seed, smi)
+    ddp = phase_data_parallel(args.seed, smi)
+    train_ddp, render_ddp = ddp["train_ddp"], ddp["render_ddp"]
+    ddp_fwd = {"train_ddp": train_ddp.get(flash_attn.NAME, 0)}
+    ddp_bwd = {"train_ddp": train_ddp.get(flash_attn.BWD_NAME, 0)}
+    fwd16["train_ddp"], bwd16["train_ddp"] = train_ddp[flash_attn.BF16_NAME], train_ddp[flash_attn.BF16_BWD_NAME]
+    if min(ddp_fwd["train_ddp"], ddp_bwd["train_ddp"], train_ddp[raster.NAME], render_ddp[raster.NAME],
+           render_ddp[display_pack.NAME]) < 1:
+        raise AssertionError(f"a data-parallel path launched no kernel: {train_ddp}, {render_ddp}")
 
     import torch
 
@@ -3876,15 +4538,18 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": flash_attn.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_fwd.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:124",
-         "launches": launches[flash_attn.NAME] + launches["face"] + demo[flash_attn.NAME] + sum(train_fwd.values()),
+         "launches": launches[flash_attn.NAME] + launches["face"] + demo[flash_attn.NAME] + sum(train_fwd.values())
+         + ddp_fwd["train_ddp"],
          "launches_by_path": {"generate": launches[flash_attn.NAME], "face": launches["face"],
-                              "demo": demo[flash_attn.NAME], **{f"train_{path}": n for path, n in train_fwd.items()}},
+                              "demo": demo[flash_attn.NAME], **{f"train_{path}": n for path, n in train_fwd.items()},
+                              **ddp_fwd},
          "dropout": "replayed hash mask in the kernel (training); these numbers are at rate 0",
          "arithmetic": "3xTF32 on mma.sync m16n8k8 (f32); bound_ms at 495/3 TFLOP/s",
          **{k: attn[k] for k in attn_keys}, **tc(attn)},
         {"name": flash_attn.BWD_NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/flash_attn_bwd.cu",
-         "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:157", "launches": sum(train_bwd.values()),
-         "launches_by_path": {f"train_{path}": n for path, n in train_bwd.items()},
+         "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:157",
+         "launches": sum(train_bwd.values()) + ddp_bwd["train_ddp"],
+         "launches_by_path": {**{f"train_{path}": n for path, n in train_bwd.items()}, **ddp_bwd},
          "dropout": bwd["dropout"], "shape": [
              bwd[k] for k in ("B", "H", "Tq", "Tk", "Dh")],
          "arithmetic": "3xTF32 on mma.sync m16n8k8 (f32); bound_ms at 495/3 TFLOP/s",
@@ -3909,14 +4574,17 @@ def main() -> None:
          "bound_ms": bf16["bwd_bound_ms"], "bound_by": bf16["bwd_bound_by"]},
         {"name": raster.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/raster.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas_raster.py:143",
-         "launches": launches[raster.NAME] + demo[raster.NAME] + train_avatar,
-         "launches_by_path": {"render": launches[raster.NAME], "demo": demo[raster.NAME], "train_avatar": train_avatar},
+         "launches": launches[raster.NAME] + demo[raster.NAME] + train_avatar + train_ddp[raster.NAME]
+         + render_ddp[raster.NAME],
+         "launches_by_path": {"render": launches[raster.NAME], "demo": demo[raster.NAME], "train_avatar": train_avatar,
+                              "train_ddp": train_ddp[raster.NAME], "render_ddp": render_ddp[raster.NAME]},
          "shape": [ras[k] for k in ("B", "H", "W", "faces")], "graph_ms": ras["graph_ms"],
          **{k: ras[k] for k in keys}},
         {"name": display_pack.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/display_pack.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas/display_pack.py:56",
-         "launches": launches[display_pack.NAME] + demo[display_pack.NAME],
-         "launches_by_path": {"render": launches[display_pack.NAME], "demo": demo[display_pack.NAME]},
+         "launches": launches[display_pack.NAME] + demo[display_pack.NAME] + render_ddp[display_pack.NAME],
+         "launches_by_path": {"render": launches[display_pack.NAME], "demo": demo[display_pack.NAME],
+                              "render_ddp": render_ddp[display_pack.NAME]},
          "shape": [disp[k] for k in ("B", "H", "W")], "exact_share": disp["exact_share"],
          "no_tex_rec_ms": disp["no_tex_rec_ms"], "packed_ms": disp["packed_ms"], **{k: disp[k] for k in keys}},
     ]}), flush=True)

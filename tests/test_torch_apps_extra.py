@@ -27,6 +27,7 @@ from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
 from audio2photoreal_tpu_torch.render import viz
 from audio2photoreal_tpu_torch.render.assets import Camera, make_synthetic_assets, save_renderer_bundle
 from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar, RendererConfig
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 RENDER_TINY = dict(uv_size=64, init_uv_size=16, upscale_size=128, n_embs=32, n_face_embs=256,
                    n_pose_enc_channels=8, n_embs_enc_channels=8, n_init_channels=16, n_min_channels=4,

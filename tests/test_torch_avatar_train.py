@@ -45,6 +45,7 @@ from audio2photoreal_tpu_torch.render.assets import Camera, make_synthetic_asset
 from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar, RendererConfig
 from audio2photoreal_tpu_torch.train.loops import avatar_train_step
 from audio2photoreal_tpu_torch.train.state import TrainState
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 TINY = dict(uv_size=64, init_uv_size=16, upscale_size=128, n_embs=16, n_face_embs=16, n_pose_enc_channels=8,
             n_embs_enc_channels=8, n_init_channels=16, n_min_channels=4, shadow_size=32, view_unet_ftrs=4,

@@ -40,6 +40,7 @@ from audio2photoreal_tpu_torch.apps import convert_checkpoint
 from audio2photoreal_tpu_torch.apps.render_pipeline import BodyRenderer, load_body_renderer
 from audio2photoreal_tpu_torch.render import assets
 from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar, RendererConfig
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 SMALL = dict(uv_size=64, init_uv_size=16, upscale_size=128, n_embs=16, n_face_embs=16, n_pose_enc_channels=8,
              n_embs_enc_channels=8, n_init_channels=16, n_min_channels=4, shadow_size=32, view_unet_ftrs=4,

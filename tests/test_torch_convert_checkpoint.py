@@ -34,6 +34,7 @@ from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
 from audio2photoreal_tpu_torch.models.guide import GuideTransformer
 from audio2photoreal_tpu_torch.models.lip_regressor import LipRegressor
 from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 PERSON = "PXB184"
 COMMON = dict(max_seq_length=600, add_frame_cond=1, data_root=f"dataset/{PERSON}")

@@ -21,6 +21,7 @@ from audio2photoreal_tpu_torch.core import config
 from audio2photoreal_tpu_torch.data.dataset import SocialDataset, load_local_data
 from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
 from audio2photoreal_tpu_torch.diffusion import respace, sampling
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 
 def test_config_json_round_trips_between_packages(tmp_path):

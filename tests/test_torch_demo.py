@@ -34,6 +34,7 @@ from audio2photoreal_tpu_torch.data.dataset import write_wav
 from audio2photoreal_tpu_torch.render.assets import Camera, make_synthetic_assets, save_renderer_bundle
 from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar, RendererConfig
 from test_torch_generate import slice_setup  # noqa: F401  (a module fixture)
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 FACE = dict(data_format="face", nfeats=256, latent_dim=16, ff_size=32, num_layers=1, num_heads=2,
             cond_encoder_layers=1, max_seq_length=120, dropout=0.0)

@@ -24,6 +24,7 @@ from audio2photoreal_tpu.ops.pallas.display_pack import finalize_display_packed 
 from audio2photoreal_tpu.render.color import linear2display_batch as j_linear2display
 from audio2photoreal_tpu_torch.kernels import display_pack, launch_counts
 from audio2photoreal_tpu_torch.render import mesh_vae
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 STD = 35.0
 

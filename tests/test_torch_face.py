@@ -52,6 +52,7 @@ from audio2photoreal_tpu_torch.models import audio_encoder, blocks
 from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn, cfg_model_fn_cached
 from audio2photoreal_tpu_torch.models.lip_regressor import LipRegressor
 from audio2photoreal_tpu_torch.ops import embeddings, rotary
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 T = 150
 MODEL = dict(data_format="face", nfeats=256, latent_dim=16, ff_size=32, num_layers=2, num_heads=2,

@@ -36,6 +36,7 @@ from audio2photoreal_tpu_torch.models.audio_encoder import Wav2VecFeatureExtract
 from audio2photoreal_tpu_torch.models.film_transformer import FiLMDenoiser
 from audio2photoreal_tpu_torch.models.guide import GuideTransformer
 from audio2photoreal_tpu_torch.models.lip_regressor import LipRegressor
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 REL = 2e-5
 SEG, LIP_CHUNK = 64, 12

@@ -26,6 +26,7 @@ from audio2photoreal_tpu_torch.kernels.flash_attn import (
     flash_attention_bwd_reference,
     flash_attention_reference,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 
 def _qkv(B=2, H=2, Tq=13, Tk=37, Dh=16, seed=0):

@@ -39,6 +39,7 @@ from audio2photoreal_tpu_torch.diffusion import respace, sampling
 from audio2photoreal_tpu_torch.kernels.flash_attn import flash_attention_reference
 from audio2photoreal_tpu_torch.models import blocks, guide
 from audio2photoreal_tpu_torch.models.cfg import cfg_model_fn, cfg_model_fn_cached
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 T = 128
 MODEL = dict(data_format="pose", latent_dim=16, ff_size=32, num_layers=2, num_heads=2,
@@ -174,9 +175,18 @@ def test_generate_with_guide_keyframes_matches_jax(slice_setup, guide_dirs, monk
 
     def j_spy(self, audio, num_keyframes, key, top_p=0.94):
         seen["key"], seen["n"] = key, num_keyframes * self.vcfg.depth
-        seen["jax"] = np.asarray(self.guide.apply(self.gparams, audio, seen["n"], key, top_p=top_p,
-                                                  method=JGuide.generate))
-        return j_call(self, audio, num_keyframes, key, top_p)
+        codec = self.codec
+
+        class Tokens:  # the codes JAX's keyframer decodes are its guide's tokens, [B, K, depth]
+            def apply(_, params, codes, *a, **k):
+                seen["jax"] = np.asarray(codes).reshape(codes.shape[0], -1)
+                return codec.apply(params, codes, *a, **k)
+
+        self.codec = Tokens()
+        try:
+            return j_call(self, audio, num_keyframes, key, top_p)
+        finally:
+            self.codec = codec
 
     monkeypatch.setattr(j_generate.GuideKeyframer, "__call__", j_spy)
     kw = dict(num_samples=2, guidance_param=2.0, timestep_respacing="ddim10", top_p=0.9)

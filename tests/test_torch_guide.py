@@ -30,6 +30,7 @@ from audio2photoreal_tpu_torch import convert
 from audio2photoreal_tpu_torch.core.config import GuideConfig, VQConfig
 from audio2photoreal_tpu_torch.models import blocks, guide, vqvae
 from audio2photoreal_tpu_torch.ops import attention, rotary
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 GUIDE = dict(tokens=32, latent_dim=64, ff_size=96, num_layers=2, num_heads=2, vq_depth=2, dropout=0.0)
 VQ = dict(nfeats=104, emb_width=16, code_dim=32, depth=2)

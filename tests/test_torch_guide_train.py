@@ -48,6 +48,7 @@ from audio2photoreal_tpu_torch.models.guide import GuideTransformer
 from audio2photoreal_tpu_torch.models.vqvae import TemporalVertexCodec
 from audio2photoreal_tpu_torch.train import loops
 from audio2photoreal_tpu_torch.train.state import TrainState, trainable_parameters
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 GUIDE = dict(tokens=16, latent_dim=64, ff_size=96, num_layers=2, num_heads=2, vq_depth=2, dropout=0.0)
 VQ = dict(nfeats=104, emb_width=8, code_dim=16, depth=2, kmeans_init=False)

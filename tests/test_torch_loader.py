@@ -25,6 +25,7 @@ from audio2photoreal_tpu_torch.core.config import DataConfig
 from audio2photoreal_tpu_torch.data import feature_cache, loader, native
 from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
 from audio2photoreal_tpu_torch.data.stats import DataStats
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 PERSON = "PXB184"
 FRAMES = 90

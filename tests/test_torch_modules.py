@@ -34,6 +34,7 @@ from audio2photoreal_tpu_torch.core.config import DenoiserConfig
 from audio2photoreal_tpu_torch.models import audio_encoder, blocks
 from audio2photoreal_tpu_torch.models.film_transformer import CondTokens, FiLMDenoiser
 from audio2photoreal_tpu_torch.ops import attention, convs, embeddings, resample, rotary
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 2e-5

@@ -36,6 +36,7 @@ from raster_emulation import (  # tests/raster_emulation.py
     scratch_offsets,
     tile_list,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 TOL = 1e-5
 

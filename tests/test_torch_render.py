@@ -37,6 +37,7 @@ from audio2photoreal_tpu_torch.render.assets import (load_bundle_parts, make_syn
                                                      save_renderer_bundle, synthetic_rig)
 from audio2photoreal_tpu_torch.render.geometry import project_points
 from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar, RendererConfig
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 TOL = 2e-5
 TINY = dict(uv_size=64, init_uv_size=16, upscale_size=128, n_embs=32, n_face_embs=256,

@@ -30,6 +30,7 @@ from audio2photoreal_tpu_torch import convert
 from audio2photoreal_tpu_torch.render import blocks, color, face, geometry, layers, quaternion, shadow, unet
 from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets, synthetic_seam_sampler
 from audio2photoreal_tpu_torch.render.mesh_vae import RendererConfig
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 TOL = 2e-5
 TINY = dict(uv_size=64, init_uv_size=16, upscale_size=128, n_embs=32, n_face_embs=256,

@@ -17,6 +17,7 @@ from audio2photoreal_tpu.render import shadow as j_shadow
 from audio2photoreal_tpu.render import unet as j_unet
 from audio2photoreal_tpu_torch import convert
 from audio2photoreal_tpu_torch.render import shadow, unet
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 REL = 2e-5
 

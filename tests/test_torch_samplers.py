@@ -25,6 +25,7 @@ from audio2photoreal_tpu.render import geometry as j_geometry
 from audio2photoreal_tpu_torch.diffusion import gaussian, respace, sampling
 from audio2photoreal_tpu_torch.ops import embeddings
 from audio2photoreal_tpu_torch.render import color, geometry
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 B, T, C = 2, 6, 5
 REL = 1e-5

@@ -54,6 +54,7 @@ from audio2photoreal_tpu_torch.train import checkpoints, logging
 from audio2photoreal_tpu_torch.train.loops import diffusion_train_step
 from audio2photoreal_tpu_torch.train.state import TrainState, trainable_parameters
 from audio2photoreal_tpu_torch.utils.profiling import Timer, profile_trace
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 T = 128
 MODEL = dict(data_format="pose", latent_dim=64, ff_size=128, num_layers=2, num_heads=2, max_seq_length=T,

@@ -46,6 +46,7 @@ from audio2photoreal_tpu_torch.data.fixtures import make_synthetic_person
 from audio2photoreal_tpu_torch.models import vqvae
 from audio2photoreal_tpu_torch.train.loops import huber, vq_train_step
 from audio2photoreal_tpu_torch.train.state import TrainState
+from torch_threads import one_torch_thread  # noqa: E402,F401  (tests/torch_threads.py)
 
 VQ = dict(nfeats=104, emb_width=8, code_dim=16, depth=2, kmeans_iters=2)
 B, K = 4, 20  # 80 keyframe vectors for 16 codes
