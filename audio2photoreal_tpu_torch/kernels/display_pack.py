@@ -14,10 +14,18 @@ tex [B, 3, H, W], shadow [B, 1, H, W], mean [3, H, W].
 - ``finalize_display_packed`` returns what the JAX function returns, RGB8
   packed in int32 [B, H, W] (R | G << 8 | B << 16).
 
+A bf16 texture (the renderer's bf16 compute mode, ``render/layers.py:
+render_compute_dtype``) computes ``tex_rec`` as the JAX package's bf16 render
+does (mesh_vae.py:forward_tex): std and the mean rounded to bf16, the
+shadow cast to bf16, a bf16 rounding after x std, after + mean and after x
+shadow; the display value then comes from ``float(tex_rec)`` in f32
+(mesh_vae.py:513).  It launches the kernel's bf16 instantiation, counted as
+``display_pack_bf16``.
+
 A CPU tensor takes the plain version (``finalize_display_reference``, the
 composed chain the render ran before the kernel); a CUDA tensor launches the
-kernel or raises.  The kernel's design and what bounds it are in the
-source's head note.
+kernel for its dtype or raises.  The kernel's design and what bounds it are
+in the source's head note.
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ from audio2photoreal_tpu_torch.kernels.build import load_library
 from audio2photoreal_tpu_torch.render.color import linear2display_batch
 
 NAME = "display_pack"
+BF16_NAME = "display_pack_bf16"  # the bf16 instantiation: its C entry and its launch count
 SOURCES = ("display_pack.cu",)
+ENTRIES = {torch.float32: NAME, torch.bfloat16: BF16_NAME}  # the texture's dtype -> C entry
 BLACK, WHITE = 5.0 / 255.0, 0.7  # the renderer's display points (color.linear2display_batch)
 
 
@@ -42,11 +52,19 @@ BLACK, WHITE = 5.0 / 255.0, 0.7  # the renderer's display points (color.linear2d
 def library() -> ctypes.CDLL:
     """Build (at first use) and bind the kernel library."""
     lib = load_library(NAME, SOURCES)
-    fn = lib.display_pack
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_float] * 3
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for entry in ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_float] * 3
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
+
+
+def carrier_scalar(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype`` (the JAX package's ``jnp.asarray(x,
+    dtype)``), as a Python float: a scalar that multiplies a tensor of that
+    dtype exactly as a tensor of it would."""
+    return float(torch.tensor(x, dtype=dtype))
 
 
 def pack_rgb8(display: torch.Tensor) -> torch.Tensor:
@@ -64,10 +82,12 @@ def finalize_display_reference(
     black: float = BLACK,
     white: float = WHITE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version: (display [B, 3, H, W], tex_rec [B, 3, H, W])
-    by the composed chain, in its order."""
-    tex_rec = (tex * std + mean[None]) * shadow
-    display = torch.round(linear2display_batch(tex_rec, black, white)).clamp(0.0, 255.0)
+    """The plain PyTorch version: (display [B, 3, H, W] f32, tex_rec
+    [B, 3, H, W] in tex's dtype) by the composed chain, in its order; std,
+    the mean and the shadow in tex's dtype (each rounded once for bf16)."""
+    dt = tex.dtype
+    tex_rec = (tex * carrier_scalar(std, dt) + mean[None].to(dt)) * shadow.to(dt)
+    display = torch.round(linear2display_batch(tex_rec.float(), black, white)).clamp(0.0, 255.0)
     return display, tex_rec
 
 
@@ -84,30 +104,33 @@ def _check(tex, shadow, mean) -> None:
         raise ValueError(f"tex, shadow, mean on different devices: {devices}")
     if tex.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no display kernel for device {tex.device}")
-    if tex.device.type == "cuda" and any(t.dtype != torch.float32 for t in (tex, shadow, mean)):
-        raise ValueError(f"the display kernel takes float32; got {tex.dtype}, {shadow.dtype}, {mean.dtype}")
+    if tex.device.type == "cuda" and (tex.dtype not in ENTRIES or shadow.dtype != tex.dtype
+                                      or mean.dtype != torch.float32):
+        raise ValueError(f"the display kernel takes a float32 or bfloat16 texture and shadow and a float32 "
+                         f"mean; got {tex.dtype}, {shadow.dtype}, {mean.dtype}")
 
 
 def _launch(tex, shadow, mean, std, black, white, packed: bool, with_tex_rec: bool):
     B, _, H, W = tex.shape
+    entry = ENTRIES[tex.dtype]
     tex, shadow, mean = tex.contiguous(), shadow.contiguous(), mean.contiguous()
     if packed:
         out, tex_rec = torch.empty((B, H, W), dtype=torch.int32, device=tex.device), None
     else:
-        out = torch.empty_like(tex)
+        out = torch.empty(tex.shape, dtype=torch.float32, device=tex.device)
         tex_rec = torch.empty_like(tex) if with_tex_rec else None
     # the plain version's f32 constants: black and 1 / (white - black) as
     # PyTorch rounds a Python scalar and its reciprocal
     inv_range = float(np.float32(1.0) / np.float32(white - black))
-    fn = library().display_pack
+    fn = getattr(library(), entry)
     with torch.cuda.device(tex.device):
         err = fn(tex.data_ptr(), shadow.data_ptr(), mean.data_ptr(), out.data_ptr(),
-                 tex_rec.data_ptr() if tex_rec is not None else None, B, H * W, float(std),
+                 tex_rec.data_ptr() if tex_rec is not None else None, B, H * W, carrier_scalar(std, tex.dtype),
                  float(np.float32(black)), inv_range, int(packed),
                  torch.cuda.current_stream(tex.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{NAME} launch failed: cudaError_t {err}")
-    launch_counts[NAME] += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError_t {err}")
+    launch_counts[entry] += 1
     return out, tex_rec
 
 
@@ -120,9 +143,11 @@ def finalize_display(
     white: float = WHITE,
     with_tex_rec: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(display values 0..255 as f32 [B, 3, H, W], tex_rec or None).  CPU
-    tensors take the plain version; CUDA float32 tensors launch the kernel
-    on the current stream; anything else raises."""
+    """(display values 0..255 as f32 [B, 3, H, W], tex_rec or None).  The
+    shadow is cast to tex's dtype.  CPU tensors take the plain version; CUDA
+    float32 or bfloat16 tensors launch the kernel for their dtype on the
+    current stream; anything else raises."""
+    shadow = shadow.to(tex.dtype)
     _check(tex, shadow, mean)
     if tex.device.type == "cpu":
         display, tex_rec = finalize_display_reference(tex, shadow, mean, std, black, white)
@@ -140,7 +165,8 @@ def finalize_display_packed(
 ) -> torch.Tensor:
     """The JAX function's result, RGB8 packed in int32 [B, H, W], from the
     port's planar tensors.  CPU tensors take the plain version; CUDA float32
-    tensors launch the kernel; anything else raises."""
+    or bfloat16 tensors launch the kernel; anything else raises."""
+    shadow = shadow.to(tex.dtype)
     _check(tex, shadow, mean)
     if tex.device.type == "cpu":
         return pack_rgb8(finalize_display_reference(tex, shadow, mean, std, black, white)[0])

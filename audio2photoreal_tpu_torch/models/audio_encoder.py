@@ -24,7 +24,8 @@ layout inside the modules; the public functions take and return [B, T, C].
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -33,6 +34,7 @@ import torch.nn.functional as F
 from audio2photoreal_tpu_torch.core.config import WAV2VEC_SR
 from audio2photoreal_tpu_torch.core import dtypes
 from audio2photoreal_tpu_torch.ops.resample import resample
+from audio2photoreal_tpu_torch.parallel import collectives
 
 # (dim, kernel, stride) — fairseq wav2vec/vq-wav2vec feature extractor spec
 VQ_WAV2VEC_SPEC: Tuple[Tuple[int, int, int], ...] = (
@@ -42,6 +44,9 @@ VQ_WAV2VEC_SPEC: Tuple[Tuple[int, int, int], ...] = (
     (512, 4, 2),
     (512, 4, 2),
 )
+
+
+MOMENT_CHUNK = 1 << 16  # frames a step of the masked second moment's sum
 
 
 def feature_frames(n_samples: int, spec=VQ_WAV2VEC_SPEC) -> int:
@@ -57,22 +62,64 @@ class GroupNormAll(nn.GroupNorm):
     (C, T) jointly, with the population variance and eps 1e-5.  With a
     [B, T] ``mask`` the moments are taken over the frames it keeps (the JAX
     package's ``_GroupNormAll`` with ``mask``); every frame is normalised.
-    The moments and the affine are f32 whatever x's dtype, and the result
-    is cast back to it."""
+    With ``axis`` the masked count and first moment, then the second
+    central moment, are summed over the processes of that axis
+    (``parallel/collectives.py:psum``), so each process of the
+    sequence-sharded frontend normalises its window with the global
+    moments.  The moments and the affine are f32 whatever x's dtype, and
+    the result is cast back to it."""
 
     def __init__(self, dim: int):
         super().__init__(1, dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if mask is None:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                axis: Optional[str] = None) -> torch.Tensor:
+        if mask is None and axis is None:
             return F.group_norm(x.float(), 1, self.weight, self.bias, self.eps).to(x.dtype)
+        # the moments from per-frame channel sums, the second one a chunk of
+        # frames at a time, and the affine in place without autograd: the
+        # norm then holds two maps of x's size, as F.group_norm does
         x32 = x.float()
-        m = mask[:, None, :].float()
-        cnt = torch.clamp(m.sum(dim=(1, 2), keepdim=True) * x.shape[1], min=1.0)
-        mean = (x32 * m).sum(dim=(1, 2), keepdim=True) / cnt
-        var = ((x32 - mean).square() * m).sum(dim=(1, 2), keepdim=True) / cnt
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight[:, None] + self.bias[:, None]).to(x.dtype)
+        m = torch.ones_like(x32[:, :1]) if mask is None else mask.float()[:, None, :]  # [B, 1, T]
+        cnt = m.sum(dim=(1, 2), keepdim=True) * x.shape[1]
+        s1 = (x32.sum(1, keepdim=True) * m).sum(dim=(1, 2), keepdim=True)
+        if axis is not None:
+            cnt, s1 = collectives.psum_tensors([cnt, s1], axis)
+        cnt = torch.clamp(cnt, min=1.0)
+        mean = s1 / cnt
+        s2 = sum(((x32[..., i:i + MOMENT_CHUNK] - mean).square().sum(1, keepdim=True) * m[..., i:i + MOMENT_CHUNK])
+                 .sum(dim=(1, 2), keepdim=True) for i in range(0, x.shape[-1], MOMENT_CHUNK))
+        if axis is not None:
+            s2 = collectives.psum(s2, axis)
+        var = s2 / cnt
+        d, scale = x32 - mean, torch.rsqrt(var + self.eps)
+        if torch.is_grad_enabled():
+            return (d * scale * self.weight[:, None] + self.bias[:, None]).to(x.dtype)
+        return d.mul_(scale).mul_(self.weight[:, None]).add_(self.bias[:, None]).to(x.dtype)
+
+
+class SeqShardCtx(NamedTuple):
+    """Which window of the sequence-sharded signal this process holds and
+    the global frame bookkeeping its group norms need to count each output
+    frame once (``parallel/seq_shard.py``); the JAX package's fields."""
+
+    axis_name: str
+    win_index: int  # this process's window
+    n_windows: int
+    frames_per_window: int  # m: final-layer output frames each window owns
+    orig_len: int  # sample count of the whole signal, before padding
+
+    def owned(self, n_frames: int, rf: int, jump: int, total_jump: int, device=None) -> torch.Tensor:
+        """[n_frames] bool: the frames of a layer (receptive field ``rf``,
+        hop ``jump`` samples) that this window counts in its group norm: its
+        first m·total_jump/jump (the next window computes the rest again),
+        or all of them in the last window, none past the whole signal's
+        last frame of that layer (JAX audio_encoder.py:162-173)."""
+        frames = torch.arange(n_frames, device=device)
+        owned = self.frames_per_window * (total_jump // jump)
+        last = self.win_index == self.n_windows - 1
+        n_out = (self.orig_len - rf) // jump + 1
+        return ((frames < owned) | last) & (self.win_index * owned + frames < n_out)
 
 
 class ConvFeatureExtractor(nn.Module):
@@ -99,26 +146,38 @@ class ConvFeatureExtractor(nn.Module):
             cin = dim
         self.conv_layers = nn.ModuleList(layers)
 
-    def forward(self, wav: torch.Tensor, n_valid=None) -> torch.Tensor:
+    def forward(self, wav: torch.Tensor, seq_ctx: Optional[SeqShardCtx] = None, n_valid=None) -> torch.Tensor:
         """``n_valid`` (an int or a [B] tensor: the samples before zero
         padding) gives every group norm masked moments over the frames whose
         receptive field lies in the real signal, as the JAX package's
         ``ConvFeatureExtractor`` does; the first ``feature_frames(n_valid)``
-        frames then equal the extractor's on the unpadded signal."""
+        frames then equal the extractor's on the unpadded signal.
+
+        ``seq_ctx``: ``wav`` is one window of a longer signal
+        (``parallel/seq_shard.py``).  Each layer's group norm then counts
+        the frames this window owns (not the halo the next window computes
+        again, not the frames of the last window's padding) and sums its
+        moments over the context's axis (JAX ``:162-173``); ``n_valid``
+        applies only without it, as in JAX."""
         dt = self.dtype
         x = wav[:, None, :]
-        n = None if n_valid is None else torch.as_tensor(n_valid, device=wav.device).reshape(-1, 1)
+        n = None if n_valid is None or seq_ctx is not None else (
+            torch.as_tensor(n_valid, device=wav.device).reshape(-1, 1))
+        total_jump = math.prod(conv.stride[0] for conv in (layer[0] for layer in self.conv_layers))
         rf, jump = 1, 1
         for layer in self.conv_layers:
             conv, norm = layer[0], layer[2]
             x = F.conv1d(x.to(dt), conv.weight.to(dt), None, conv.stride)
             rf += (conv.kernel_size[0] - 1) * jump
             jump *= conv.stride[0]
-            mask = None
+            mask = axis = None
             if n is not None:
                 frames = torch.arange(x.shape[-1], device=wav.device)
                 mask = (frames[None] < (n - rf) // jump + 1).float().expand(x.shape[0], -1)
-            x = norm(x, mask)  # one statement each: the conv's output is freed before the ReLU's
+            if seq_ctx is not None:
+                own = seq_ctx.owned(x.shape[-1], rf, jump, total_jump, wav.device)
+                mask, axis = own.float()[None].expand(x.shape[0], -1), seq_ctx.axis_name
+            x = norm(x, mask, axis)  # one statement each: the conv's output is freed before the ReLU's
             x = torch.relu(x)
         x = x.transpose(1, 2).float()
         if self.log_compression:
@@ -142,7 +201,7 @@ class Wav2VecFeatureExtractor(nn.Module):
         gives masked group-norm moments (``ConvFeatureExtractor``)."""
         n16 = None if n_valid is None else torch.as_tensor(n_valid) * WAV2VEC_SR // self.input_sr
         feats = [
-            self.feature_extractor(resample(audio[..., ch], self.input_sr, WAV2VEC_SR), n16)
+            self.feature_extractor(resample(audio[..., ch], self.input_sr, WAV2VEC_SR), n_valid=n16)
             for ch in range(2)
         ]
         return torch.cat(feats, dim=-1)

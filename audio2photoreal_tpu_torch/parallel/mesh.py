@@ -5,9 +5,11 @@ shards its global batch over the ``data`` axis of a ``jax.sharding.Mesh``;
 here one process drives one device, so a mesh is the process group as this
 process sees it (``DataMesh``: the group's size, this process's index in it
 and its device) and a batch axis is sharded by giving each process its own
-rows.  The canonical axis names and ``MeshSpec.resolve`` are kept; only the
-``data`` axis has a meaning (no trainer of the JAX package shards another),
-so a spec that asks for a larger ``model`` or ``seq`` axis raises.
+rows.  The canonical axis names and ``MeshSpec.resolve`` are kept.  One
+axis spans the processes: the ``data`` axis (every trainer), or the ``seq``
+axis alone (``MeshSpec((-1,), ("seq",))``: the sequence-sharded frontend,
+``parallel/seq_shard.py``, where each process holds one window of the
+signal); a spec that asks for a larger ``model`` axis, or for both, raises.
 """
 
 from __future__ import annotations
@@ -47,9 +49,10 @@ class MeshSpec:
 
 @dataclass(frozen=True)
 class DataMesh:
-    """``size`` processes share each batch; this one is ``index`` and runs
-    on ``device``.  A global batch of B rows gives rank r its rows r·B/size
-    .. (r + 1)·B/size."""
+    """``size`` processes share ``axis``; this one is ``index`` and runs on
+    ``device``.  On the data axis a global batch of B rows gives rank r its
+    rows r·B/size .. (r + 1)·B/size; on the seq axis rank r holds window r
+    of the time axis."""
 
     size: int
     index: int
@@ -64,15 +67,22 @@ class DataMesh:
 
 def create_mesh(spec: MeshSpec = MeshSpec(), device: Optional[Union[str, torch.device]] = None) -> DataMesh:
     """The group as a mesh of ``spec``'s shape over every process, one
-    device each; ``device`` defaults to this process's card
-    (``distributed.local_device``)."""
+    device each, on the axis the processes span (the ``seq`` axis for a
+    spec that names it and not ``data``, at one process too); ``device``
+    defaults to this process's card (``distributed.local_device``)."""
     index, count = distributed.process_counts()
     shape = spec.resolve(count)
-    for axis, n in zip(spec.axes, shape):
-        if axis != DATA_AXIS and n != 1:
-            raise ValueError(f"axis {axis!r} of size {n}: only the {DATA_AXIS!r} axis is sharded")
+    sharded = [(axis, n) for axis, n in zip(spec.axes, shape) if n != 1]
+    for axis, n in sharded:
+        if axis not in (DATA_AXIS, SEQ_AXIS) or len(sharded) > 1:
+            raise ValueError(f"axis {axis!r} of size {n}: only the {DATA_AXIS!r} axis is sharded, "
+                             f"or the {SEQ_AXIS!r} axis alone")
+    if sharded:
+        axis = sharded[0][0]
+    else:
+        axis = SEQ_AXIS if SEQ_AXIS in spec.axes and DATA_AXIS not in spec.axes else DATA_AXIS
     dev = torch.device(device) if device is not None else distributed.local_device()
-    return DataMesh(count, index, dev)
+    return DataMesh(count, index, dev, axis)
 
 
 def local_mesh(device: Optional[Union[str, torch.device]] = None) -> DataMesh:

@@ -166,10 +166,13 @@ class GeometryModule(nn.Module):
         return uv.permute(0, 3, 1, 2).contiguous()
 
     def from_uv(self, uv_img: torch.Tensor) -> torch.Tensor:
-        """[B, C, H, W] → [B, V, C] (sample_uv, geom.py:274-302)."""
+        """[B, C, H, W] → [B, V, C] (sample_uv, geom.py:274-302).  The f32
+        sample coordinates promote a bf16 image: its values are sampled in
+        f32, as the JAX package's gather-and-lerp promotes them."""
         B = uv_img.shape[0]
         grid = (self.uv_coords * 2.0 - 1.0)[None, :, None, :].expand(B, -1, 1, 2)
-        out = F.grid_sample(uv_img, grid.to(uv_img.dtype), mode="bilinear",
+        img = uv_img.to(torch.promote_types(uv_img.dtype, grid.dtype))
+        out = F.grid_sample(img, grid.to(img.dtype), mode="bilinear",
                             padding_mode="zeros", align_corners=True)  # [B, C, Vt, 1]
         out = out[..., 0].transpose(1, 2)  # [B, Vt, C]
         return out[:, self.v2uv].mean(dim=2)

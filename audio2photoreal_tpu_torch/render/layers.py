@@ -11,10 +11,19 @@ one GLOBAL Frobenius norm of ``v`` with a per-output-channel ``g``, i.e.
 w = v · (g / ‖v‖_F) — not ``torch.nn.utils.weight_norm``'s per-channel norm.
 Untied biases are [C, H, W].  The JAX package's space-to-depth forms are TPU
 layout algebra with identical math and are not ported.
+
+The renderer's compute dtype (the JAX package's ``render_compute_dtype`` /
+``compute_dtype``, layers.py:25-41): inside ``render_compute_dtype(dtype)``
+every weight-norm layer computes its weight in f32 from the f32 parameters
+and casts it, and casts its input and bias, so the layer runs in ``dtype``
+and returns it.  The setting is one module-level stack, not a thread's own,
+so a render driven from any thread sees it.  The default is f32, in which
+every cast is the identity.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -22,10 +31,30 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+_COMPUTE_DTYPE = [torch.float32]
+
+
+@contextlib.contextmanager
+def render_compute_dtype(dtype: torch.dtype):
+    """Run the renderer's weight-norm layers in ``dtype`` inside the block
+    (parameters stay f32); the previous dtype is back after it, also after
+    an exception."""
+    _COMPUTE_DTYPE.append(dtype)
+    try:
+        yield
+    finally:
+        _COMPUTE_DTYPE.pop()
+
+
+def compute_dtype() -> torch.dtype:
+    return _COMPUTE_DTYPE[-1]
+
+
 def _wn(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """g (shaped to broadcast over v's out-channel dim) · v / ‖v‖_F."""
+    """g (shaped to broadcast over v's out-channel dim) · v / ‖v‖_F, in f32,
+    cast to the compute dtype."""
     norm = torch.sqrt((v * v).sum() + 1e-12)
-    return v * (g / norm)
+    return (v * (g / norm)).to(compute_dtype())
 
 
 class LinearWN(nn.Module):
@@ -37,7 +66,8 @@ class LinearWN(nn.Module):
         nn.init.normal_(self.weight_v, 0.0, in_features**-0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, _wn(self.weight_v, self.weight_g), self.bias)
+        cd = compute_dtype()
+        return F.linear(x.to(cd), _wn(self.weight_v, self.weight_g), self.bias.to(cd))
 
 
 class Conv2dWN(nn.Module):
@@ -57,7 +87,8 @@ class Conv2dWN(nn.Module):
         return _wn(self.weight_v, self.weight_g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight(), self.bias, self.stride, self.padding, 1, self.groups)
+        cd = compute_dtype()
+        return F.conv2d(x.to(cd), self.weight(), self.bias.to(cd), self.stride, self.padding, 1, self.groups)
 
 
 class Conv2dWNUB(Conv2dWN):
@@ -70,8 +101,9 @@ class Conv2dWNUB(Conv2dWN):
         self.bias = nn.Parameter(torch.zeros(out_channels, height, width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.conv2d(x, self.weight(), None, self.stride, self.padding, 1, self.groups)
-        return out + self.bias[None]
+        cd = compute_dtype()
+        out = F.conv2d(x.to(cd), self.weight(), None, self.stride, self.padding, 1, self.groups)
+        return out + self.bias[None].to(cd)
 
 
 class ConvTranspose2dWNUB(nn.Module):
@@ -88,8 +120,9 @@ class ConvTranspose2dWNUB(nn.Module):
         nn.init.normal_(self.weight_v, 0.0, (in_channels * kernel_size**2) ** -0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = compute_dtype()
         w = _wn(self.weight_v, self.weight_g)
-        return F.conv_transpose2d(x, w, None, self.stride, self.padding) + self.bias[None]
+        return F.conv_transpose2d(x.to(cd), w, None, self.stride, self.padding) + self.bias[None].to(cd)
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int], align_corners: bool = False) -> torch.Tensor:

@@ -19,6 +19,12 @@ RGB.  Components and their state-dict names follow the reference:
 
 Static per-person assets ride in ``RendererAssets`` as non-persistent
 buffers: they move with ``.to(device)`` and stay out of the state_dict.
+Inside ``render/layers.py:render_compute_dtype(torch.bfloat16)`` the model
+renders in bf16 as the JAX package's does under its namesake: f32
+parameters, bf16 activations between the layers, and type promotion for the
+rest (the f32 assets promote what they touch, so the LBS geometry, the
+raster's inputs and the display values stay f32; the texture chain casts
+the assets to the texture's dtype first).
 Tensors are NCHW; vertex arrays [B, V, 3].  ``forward(training=True)`` is
 the training branch (:322-371): the GT-AO shadow drives the texture and the
 pose shadow is exposed for its distillation, the calibration runs on the
@@ -37,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from audio2photoreal_tpu_torch.kernels.display_pack import finalize_display
+from audio2photoreal_tpu_torch.kernels.display_pack import carrier_scalar, finalize_display
 from audio2photoreal_tpu_torch.parallel import sharding
 from audio2photoreal_tpu_torch.render.blocks import ConvBlock, ConvDownBlock, UpConvBlockDeep, UpscaleNet
 from audio2photoreal_tpu_torch.render.calibration import CalV5, CameraPixelBias, LearnableBlur
@@ -355,10 +361,13 @@ class BodyAvatar(nn.Module):
         second half as ``finalize_display`` instead (``render_view``)."""
         a = self.assets
         tex = self.upscale_tex(tex_mean_rec, tex_view_rec)
-        tex = tex * a.tex_std + a.tex_mean[None]
+        # x std + mean and x shadow in the texture's dtype, the f32 assets
+        # cast to it first (mesh_vae.py:428-432)
+        dt = tex.dtype
+        tex = tex * carrier_scalar(a.tex_std, dt) + a.tex_mean[None].to(dt)
         if shadow_seamed is None:
             shadow_seamed = a.seam_2k.apply(shadow_map, 2)
-        return a.seam_2k.apply(tex * shadow_seamed, 2)
+        return a.seam_2k.apply(tex * shadow_seamed.to(dt), 2)
 
     def decode_frame(
         self,

@@ -48,9 +48,11 @@ def render_texture(
 ) -> torch.Tensor:
     """Bilinear texture lookup (align_corners=False) masked by coverage →
     [B, H, W, C].  The linear path pads with zeros; the display path with
-    the border, as the JAX package's two samplers do."""
-    grid = (uv_pix * 2.0 - 1.0).to(texture.dtype)
-    img = F.grid_sample(texture, grid, mode="bilinear", padding_mode=padding_mode,
+    the border, as the JAX package's two samplers do.  A bf16 texture is
+    sampled in f32 at the f32 coordinates (the JAX sampler's promotion)."""
+    grid = uv_pix * 2.0 - 1.0
+    texture = texture.to(torch.promote_types(texture.dtype, grid.dtype))
+    img = F.grid_sample(texture, grid.to(texture.dtype), mode="bilinear", padding_mode=padding_mode,
                         align_corners=False).permute(0, 2, 3, 1)
     mask = (raster.face_index >= 0)[..., None]
     return torch.where(mask, img, torch.zeros_like(img))

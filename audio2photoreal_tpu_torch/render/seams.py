@@ -66,7 +66,11 @@ class SeamSampler(nn.Module):
         return out.reshape(B, C, H, W)
 
     def apply(self, tex: torch.Tensor, n_resample: int = 2) -> torch.Tensor:
-        """impaint, then ``n_resample`` resample passes."""
+        """impaint, then ``n_resample`` resample passes.  A bf16 texture runs
+        the passes in f32 and is rounded once at the end, as the JAX
+        package's composed taps sum in f32 (seams.py:264-276)."""
+        if tex.dtype in (torch.bfloat16, torch.float16) and not self.is_empty:
+            return self.apply(tex.float(), n_resample).to(tex.dtype)
         tex = self.impaint(tex)
         for _ in range(n_resample):
             tex = self.resample(tex)

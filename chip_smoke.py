@@ -280,8 +280,30 @@ exception and a nonzero exit.
    batch 8 printed: cuDNN's algorithms, and their rounding, move with the
    batch).
 
-Then one line with every kernel's numbers (the raster's launches by path:
-the render, the demo, the avatar trainer and the data-parallel paths; the f32 attention rows' bound
+32. render bf16 parity (after 6): the full-width avatar of 6 (1 frame x 2
+   cameras) in f32 and inside ``render_compute_dtype(torch.bfloat16)`` on
+   the card and on the CPU: each camera's tex_rec and the geometry by the
+   bf16 ratio bar (card bf16 against CPU f32, against CPU bf16 against CPU
+   f32), the card's bf16 render through the display kernel's bf16
+   instantiation; the uint8 frames card bf16 against CPU bf16, printed.
+33. main path, bf16 render (after 8): 8's renderer bundle, 64 frames x 2
+   cameras at frame batch 8, in f32 and in bf16 on the same weights:
+   frames/s, launches (raster, and the display instantiation of the
+   dtype), peak GB, one batch profiled (decode_frame and the views apart,
+   device ms by kernel group: convs, cuDNN's layout transposes, raster,
+   display); then the bf16 display instantiation against its plain version
+   (B8 3 x 2048^2 of the render's own bf16 tensors, and the ragged H 200 x
+   W 2047 case; packed and planar, tex_rec bit for bit, the display bar;
+   ms, bound at 3.35 TB/s).
+34. sequence-sharded frontend (``parallel/seq_shard.py``, after 31): two
+   ranks laid out as 31's, the full-width vq-wav2vec extractor on a 60 s
+   clip at 16 kHz (960,000 samples, 5,998 frames), each rank one window,
+   the group norms' moments summed over the ranks: within 1e-5 of scale of
+   the 1-process extractor on the card; both walls, each rank's peak GB.
+
+Then the wall seconds of each phase, one line with every kernel's numbers
+(the raster's launches by path: the render, the demo, the avatar trainer
+and the data-parallel paths; the f32 attention rows' bound
 there is the 3xTF32 one, the arithmetic they do; the bf16 rows at the pose
 trainer's B64 600 x 2000 Dh 64 shape), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Work files go to build/chip_smoke/.
@@ -833,14 +855,13 @@ def phase_raster(seed: int) -> dict:
         B = pix.shape[0]
         call = lambda: raster.rasterize_cuda(pix, dep, fc, h, w, fuv, emit_barys=barys)  # noqa: E731
         plain = lambda: raster.rasterize_reference(pix, dep, fc, h, w, fuv, emit_barys=barys)  # noqa: E731
-        # in turns: plain, kernel, kernel, plain (the plain version is slow: one
-        # call each, warmed up by the comparison above)
+        # the plain version, warmed up by the comparison above, is slow (up to
+        # 11 s a call) and 4-5 orders of magnitude from the kernel: one timed call
         p1 = _time_ms(plain, iters=1, warmup=0)
         k1 = _time_ms(call)
         k2 = _time_ms(call)
-        p2 = _time_ms(plain, iters=1, warmup=0)
         row = dict(case=name, B=B, H=h, W=w, faces=int(fc.shape[0]), emit_barys=barys, **cmp,
-                   tol=RASTER_TOL, ms=(k1 + k2) / 2, graph_ms=_graph_ms(call), plain_ms=(p1 + p2) / 2,
+                   tol=RASTER_TOL, ms=(k1 + k2) / 2, graph_ms=_graph_ms(call), plain_ms=p1,
                    library_ms=None, **_raster_numbers(pix, dep, fc, fuv, h, w, barys))
         emit("kernel_vs_plain", kernel=raster.NAME, **row)
         if not cmp["ok"]:
@@ -1089,18 +1110,251 @@ def _display_compare(args) -> dict:
     p1, k1, k2, p2 = _time_ms(plain), _time_ms(kern), _time_ms(kern), _time_ms(plain)
     n = H * W
     values = B * 3 * n
-    planar_bytes = 4 * (values + B * n + 3 * n) + 4 * 2 * values  # display and tex_rec written
+    e = tex.element_size()  # tex, shadow and tex_rec in the texture's type; the mean and display f32
+    read_bytes = e * (values + B * n) + 4 * 3 * n
+    planar_bytes = read_bytes + 4 * values + e * values  # display and tex_rec written
     bound_ms, bound_by = _bound(planar_bytes, DISPLAY_FLOPS_PER_VALUE * values)
-    out.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-               bytes=planar_bytes)
+    out.update(dtype=str(tex.dtype).replace("torch.", ""), ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by, bytes=planar_bytes)
     # the same kernel without the tex_rec output, and in the packed mode
     out["no_tex_rec_ms"] = _time_ms(lambda: display_pack.finalize_display(*args, with_tex_rec=False))
-    out["no_tex_rec_bound_ms"] = _bound(planar_bytes - 4 * values, DISPLAY_FLOPS_PER_VALUE * values)[0]
+    out["no_tex_rec_bound_ms"] = _bound(planar_bytes - e * values, DISPLAY_FLOPS_PER_VALUE * values)[0]
     out["packed_ms"] = _time_ms(lambda: display_pack.finalize_display_packed(*args))
-    out["packed_bound_ms"] = _bound(4 * (values + B * n + 3 * n) + 4 * B * n, DISPLAY_FLOPS_PER_VALUE * values)[0]
+    out["packed_bound_ms"] = _bound(read_bytes + 4 * B * n, DISPLAY_FLOPS_PER_VALUE * values)[0]
     out["ok"] = (out["exact_share"] >= DISPLAY_EXACT_SHARE and out["max_count_diff"] <= DISPLAY_MAX_COUNT
                  and out["tex_rec_equal"] and out["packed_equal_planar"])
     return out
+
+
+def _render_views(renderer, pose, face, dtype):
+    """decode_frame + one render_view a rig camera inside
+    ``render_compute_dtype(dtype)``, as ``render_sequence_multicam`` runs
+    them -> (uint8 frames [B, H, n*W, 3], geometry f32, tex_rec of each
+    camera as f32), numpy."""
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.render.layers import render_compute_dtype
+
+    m, dev, B = renderer.model, renderer.device, pose.shape[0]
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    with torch.no_grad(), render_compute_dtype(dtype):
+        d = m.decode_frame(t(pose), face_embs=t(face), embs=renderer._template_embs[0].expand(B, -1), encode=False)
+        views = [m.render_view(d, renderer._tensor(c.campos, B, dev), renderer._tensor(c.K, B, dev),
+                               renderer._tensor(c.Rt, B, dev), render_display=True)
+                 for c in renderer.cameras.values()]
+    frames = torch.cat([v["rgb"] for v in views], dim=2).to(torch.uint8).cpu().numpy()
+    return frames, d["geom"].float().cpu().numpy(), [v["tex_rec"].float().cpu().numpy() for v in views]
+
+
+def phase_render_bf16_parity(seed: int) -> None:
+    """The full-width avatar of ``phase_render_parity`` (1 frame x 2
+    cameras) in f32 and in bf16 (``render_compute_dtype``) on the card and
+    on the CPU: each camera's tex_rec and the geometry by the bf16 ratio
+    bar, err(card bf16 vs CPU f32) <= 1.5 err(CPU bf16 vs CPU f32) + 1e-3
+    scale; the card's bf16 render through the bf16 display instantiation
+    (one launch a camera, none of the f32 one); the uint8 frames' share
+    within one count and their largest difference, card bf16 against CPU
+    bf16, printed."""
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.apps.render_pipeline import BodyRenderer
+    from audio2photoreal_tpu_torch.kernels import display_pack, launch_counts, raster
+    from audio2photoreal_tpu_torch.render.assets import make_synthetic_assets, synthetic_rig
+    from audio2photoreal_tpu_torch.render.mesh_vae import RendererConfig
+
+    cfg = RendererConfig()
+    assets = make_synthetic_assets(cfg, seed=seed, mesh_density=10)
+    sd = _avatar_state_dict(cfg, assets, seed)
+    cams = synthetic_rig((0.0, 0.0, 1.0), cfg.image_height, cfg.image_width)
+    rng = np.random.RandomState(seed + 1)
+    pose = (rng.randn(1, 104) * 0.3).astype(np.float32)
+    face = (rng.randn(1, 256) * 0.3).astype(np.float32)
+    out, secs, launches = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        r = BodyRenderer(cfg, assets, sd, cams, frame_batch=1, device=device)
+        for dtype in (torch.float32, torch.bfloat16):
+            key = (device, str(dtype).replace("torch.", ""))
+            launch_counts.clear()
+            t0 = time.perf_counter()
+            out[key] = _render_views(r, pose, face, dtype)
+            secs[key] = time.perf_counter() - t0
+            launches[key] = {k: launch_counts[k] for k in (raster.NAME, display_pack.NAME, display_pack.BF16_NAME)}
+        del r
+
+    def ratio(pick):
+        card, cpu16, cpu32 = (pick(out[k]) for k in (("cuda", "bfloat16"), ("cpu", "bfloat16"), ("cpu", "float32")))
+        scale = float(np.abs(cpu32).max())
+        e_card, e_cpu = float(np.abs(card - cpu32).max()), float(np.abs(cpu16 - cpu32).max())
+        e32 = float(np.abs(pick(out[("cuda", "float32")]) - cpu32).max())
+        return dict(err_card_bf16=e_card, err_cpu_bf16=e_cpu, err_card_f32=e32, scale=scale,
+                    bar=BF16_RATIO * e_cpu + BF16_SLACK * scale, ok=e_card <= BF16_RATIO * e_cpu + BF16_SLACK * scale)
+
+    rows = {"geom": ratio(lambda o: o[1])}
+    rows.update({f"tex_rec_cam{i}": ratio(lambda o, i=i: o[2][i]) for i in range(len(cams))})
+    card, cpu = out[("cuda", "bfloat16")][0].astype(np.int32), out[("cpu", "bfloat16")][0].astype(np.int32)
+    diff = np.abs(card - cpu).max(-1)
+    covered = card.any(-1) | cpu.any(-1)
+    per_cam = len(cams)
+    checks = {name: row["ok"] for name, row in rows.items()}
+    checks.update(
+        card_bf16_launched_the_bf16_display=launches[("cuda", "bfloat16")] == {
+            raster.NAME: per_cam, display_pack.NAME: 0, display_pack.BF16_NAME: per_cam},
+        card_f32_launched_the_f32_display=launches[("cuda", "float32")] == {
+            raster.NAME: per_cam, display_pack.NAME: per_cam, display_pack.BF16_NAME: 0},
+        cpu_launched_nothing=all(sum(launches[("cpu", d)].values()) == 0 for d in ("float32", "bfloat16")))
+    emit("render_bf16_parity", frames=1, cameras=per_cam, uv=cfg.uv_size, upscale=cfg.upscale_size,
+         image=[cfg.image_height, cfg.image_width], **rows,
+         frames_within_1_count_covered_card_vs_cpu_bf16=float((diff <= 1)[covered].mean()) if covered.any() else 0.0,
+         frames_max_count_diff_card_vs_cpu_bf16=int(diff.max()),
+         coverage_agree_card_vs_cpu_bf16=float((card.any(-1) == cpu.any(-1)).mean()),
+         seconds={f"{d}_{t}": s for (d, t), s in secs.items()},
+         launches={f"{d}_{t}": n for (d, t), n in launches.items()}, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"the card's bf16 render fails the bf16 bar: {checks}")
+
+
+RENDER_GROUPS = (  # kernel-name words (lowercase) of each group, first match wins
+    ("raster", ("raster",)),
+    ("display", ("display_pack",)),
+    ("cudnn_transposes", ("transpose", "nchwtonhwc", "nhwctonchw")),
+    ("convs", ("conv", "implicit_gemm", "cudnn", "xmma", "wgrad", "dgrad", "fprop", "gemm", "winograd", "fft",
+               "sm90_")),
+)
+
+
+def _profile_groups(fn) -> dict:
+    """``fn`` once under torch.profiler -> device ms by kernel group
+    (``RENDER_GROUPS``, the rest "other"), launches, wall ms and the top
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    per, launches = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            per[e.key] = per.get(e.key, 0.0) + e.self_device_time_total / 1e3
+            launches += e.count
+    total = sum(per.values())
+    if total == 0.0:
+        raise AssertionError("torch.profiler recorded no device time")
+    groups = {name: 0.0 for name, _ in RENDER_GROUPS}
+    groups["other"] = 0.0
+    for k, v in per.items():
+        name = next((g for g, words in RENDER_GROUPS if any(w in k.lower() for w in words)), "other")
+        groups[name] += v
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    return dict(wall_ms=wall_ms, device_ms=total, device_idle_share=1.0 - total / wall_ms, launches=launches,
+                ms_by_group=groups, top_kernels_ms=[[k[:90], v] for k, v in top])
+
+
+def phase_main_path_render_bf16(seed: int, smi: str) -> dict:
+    """Phase 8's renderer bundle (full width, 2 cameras, frame batch 8)
+    through ``render_sequence_multicam`` on 64 frames, in f32 and then
+    inside ``render_compute_dtype(torch.bfloat16)`` on the same weights,
+    each after one warm-up batch: frames/s, launches (the raster and the
+    display instantiation of each dtype, one a frame batch and camera),
+    peak GB; one more batch of each profiled, decode_frame and the two
+    views apart (device ms by kernel group: convs, cuDNN's layout
+    transposes, raster, display); the frames' share within one count of
+    the f32 render, printed.  Then the bf16 display instantiation against
+    its plain version on the render's own bf16 tensors (frame batch 8,
+    2048^2) and on the ragged H 200 x W 2047 case."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio2photoreal_tpu_torch.apps.render_pipeline import load_body_renderer
+    from audio2photoreal_tpu_torch.kernels import display_pack, flash_attn, launch_counts, raster
+    from audio2photoreal_tpu_torch.render.layers import render_compute_dtype
+
+    renderer = load_body_renderer(os.path.join(WORK, "renderer"), frame_batch=RENDER_BATCH, device="cuda")
+    m, fb, n = renderer.model, RENDER_BATCH, RENDER_FRAMES
+    rng = np.random.RandomState(seed + 5)
+    pose = (rng.randn(n, 104) * 0.05).astype(np.float32)
+    face = (rng.randn(n, 256) * 0.05).astype(np.float32)
+    per_view = (n // fb) * len(renderer.cameras)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):  # its start-up, outside the readings
+        torch.ones(1 << 20, device="cuda").sum()
+        torch.cuda.synchronize()
+    runs, frames = {}, {}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        with render_compute_dtype(dtype):
+            renderer.render_sequence_multicam(pose[:fb], face[:fb])  # warm-up: cuDNN's plans for this dtype
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launch_counts.clear()
+            t0 = time.perf_counter()
+            frames[name] = renderer.render_sequence_multicam(pose, face)
+            torch.cuda.synchronize()
+            render_s = time.perf_counter() - t0
+            launches = {k: launch_counts[k] for k in (raster.NAME, display_pack.NAME, display_pack.BF16_NAME,
+                                                      flash_attn.NAME, flash_attn.BF16_NAME)}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            motion = torch.from_numpy(pose[:fb]).cuda()
+            codes = torch.from_numpy(face[:fb]).cuda()
+            embs = renderer._template_embs[0].expand(fb, -1)
+            with torch.no_grad():
+                held = {}
+                decode = _profile_groups(lambda: held.update(
+                    d=m.decode_frame(motion, face_embs=codes, embs=embs, encode=False)))
+                views = _profile_groups(lambda: [
+                    m.render_view(held["d"], renderer._tensor(c.campos, fb, "cuda"), renderer._tensor(c.K, fb, "cuda"),
+                                  renderer._tensor(c.Rt, fb, "cuda"), render_display=True)
+                    for c in renderer.cameras.values()])
+                tex_dtype = str(held["d"]["tex_mean_rec"].dtype).replace("torch.", "")
+                del held
+        runs[name] = dict(render_s=render_s, frames_per_s=n / render_s, launches=launches, peak_gb=peak_gb,
+                          texture_dtype=tex_dtype, decode_frame_profile=decode, views_profile=views)
+    diff = np.abs(frames["bfloat16"].astype(np.int32) - frames["float32"].astype(np.int32)).max(-1)
+    covered = frames["float32"].any(-1)
+    checks = {
+        "frames_shape": all(list(f.shape) == [n, m.cfg.image_height, 2 * m.cfg.image_width, 3]
+                            and f.dtype == np.uint8 for f in frames.values()),
+        "bf16_texture": runs["bfloat16"]["texture_dtype"] == "bfloat16" and runs["float32"]["texture_dtype"] == "float32",
+        "f32_launches": runs["float32"]["launches"] == {raster.NAME: per_view, display_pack.NAME: per_view,
+                                                        display_pack.BF16_NAME: 0, flash_attn.NAME: 0,
+                                                        flash_attn.BF16_NAME: 0},
+        "bf16_launches": runs["bfloat16"]["launches"] == {raster.NAME: per_view, display_pack.NAME: 0,
+                                                          display_pack.BF16_NAME: per_view, flash_attn.NAME: 0,
+                                                          flash_attn.BF16_NAME: 0},
+        "coverage_in_range": bool(0.02 <= covered.mean() <= 0.9),
+    }
+    emit("main_path_render_bf16", nvidia_smi=smi, frames=n, frame_batch=fb, cameras=len(renderer.cameras),
+         uv=m.cfg.uv_size, upscale=m.cfg.upscale_size, image=[m.cfg.image_height, m.cfg.image_width],
+         faces=int(m.assets.geo.faces.shape[0]), **runs,
+         bf16_over_f32_frames_per_s=runs["bfloat16"]["frames_per_s"] / runs["float32"]["frames_per_s"],
+         frames_within_1_count_of_f32_covered=float((diff <= 1)[covered].mean()),
+         frames_max_count_diff_vs_f32=int(diff.max()), checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"main path (bf16 render) checks failed: {checks}")
+
+    # the bf16 display instantiation against its plain version, on the render's own bf16 tensors
+    with torch.no_grad(), render_compute_dtype(torch.bfloat16):
+        decoded = m.decode_frame(torch.from_numpy(pose[:fb]).cuda(), face_embs=torch.from_numpy(face[:fb]).cuda(),
+                                 embs=renderer._template_embs[0].expand(fb, -1), encode=False)
+        args = _display_inputs(m, decoded, renderer.cameras, fb)
+    del decoded
+    summary = _display_compare(args)
+    emit("kernel_vs_plain", kernel=display_pack.BF16_NAME, case="render_b8", **summary)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ragged = ((torch.randn((3, 3, 200, 2047), generator=g, device="cuda") * 0.3).to(torch.bfloat16),
+              torch.rand((3, 1, 200, 2047), generator=g, device="cuda").to(torch.bfloat16),
+              torch.rand((3, 200, 2047), generator=g, device="cuda") * 200.0, 35.0)
+    row = _display_compare(ragged)
+    emit("kernel_vs_plain", kernel=display_pack.BF16_NAME, case="ragged_h200_w2047", **row)
+    for r in (summary, row):
+        if not (r["ok"] and r["dtype"] == "bfloat16"):
+            raise AssertionError(f"{display_pack.BF16_NAME} disagrees with its plain version: {r}")
+    return {"launches": {name: r["launches"] for name, r in runs.items()}, "display": summary}
 
 
 def _guide_models(seed: int):
@@ -4071,7 +4325,7 @@ def _dp_rank(rank: int, world: int, flags: list, task: str, seed: int, out_dir: 
     dev = dist.local_device()
     torch.cuda.set_device(dev)
     try:
-        res = _dp_parity_rank(seed, dev) if task == "parity" else _dp_train_rank(seed, dev)
+        res = {"parity": _dp_parity_rank, "train": _dp_train_rank, "seq_shard": _seq_shard_rank}[task](seed, dev)
         res.update(rank=rank, device=str(dev), backend=torch.distributed.get_backend())
         torch.save(res, os.path.join(out_dir, f"{task}_rank{rank}.pt"))
     finally:
@@ -4465,6 +4719,108 @@ def phase_data_parallel(seed: int, smi: str) -> dict:
     return {"train_ddp": launches, "render_ddp": render}
 
 
+SEQ_SHARD_SAMPLES = 60 * 16_000  # a 60 s clip at 16 kHz: 5,998 frames, 3x the denoisers' 20 s
+SEQ_SHARD_REL_TOL = 1e-5  # 2 ranks vs 1 process, of the output's largest magnitude
+
+
+def _seq_shard_inputs(seed: int, dev):
+    """The full-width vq-wav2vec extractor (weights from ``seed``) and the
+    60 s clip [1, S] on ``dev``."""
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.models.audio_encoder import ConvFeatureExtractor
+
+    torch.manual_seed(seed)
+    fe = ConvFeatureExtractor().eval()
+    wav = (np.random.RandomState(seed + 60).randn(1, SEQ_SHARD_SAMPLES) * 0.1).astype(np.float32)
+    return fe.to(dev), torch.from_numpy(wav).to(dev)
+
+
+def _timed_extract(fn, dev) -> tuple:
+    """``fn()`` once to warm up (cuDNN's plans), then timed from a
+    synchronized start -> (output on the CPU, wall s, peak GB of the timed
+    call)."""
+    import torch
+
+    from audio2photoreal_tpu_torch.parallel import distributed as dist
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    return out.cpu(), wall, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def _seq_shard_rank(seed: int, dev) -> dict:
+    """One rank of ``phase_seq_shard``: its window of the 60 s clip through
+    ``seq_sharded_extract`` on the ``seq`` axis of every rank."""
+    from audio2photoreal_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+    from audio2photoreal_tpu_torch.parallel.seq_shard import seq_sharded_extract
+
+    fe, wav = _seq_shard_inputs(seed, dev)
+    mesh = create_mesh(MeshSpec((-1,), ("seq",)), dev)
+    out, wall, peak = _timed_extract(lambda: seq_sharded_extract(lambda w, ctx: fe(w, ctx), wav, mesh), dev)
+    return dict(out=out, wall_s=wall, peak_gb=peak, mesh=[mesh.size, mesh.index, mesh.axis])
+
+
+def phase_seq_shard(seed: int, smi: str) -> None:
+    """The sequence-sharded vq-wav2vec frontend (``parallel/seq_shard.py``):
+    two ranks, laid out as ``phase_data_parallel``'s (gloo with both on
+    cuda:0 when one card is visible, NCCL with a card each when two are),
+    each computing its window of a 60 s clip at 16 kHz with the full-width
+    extractor, its group norms' moments summed over the ranks, the frames
+    gathered; against the 1-process extractor on the card within 1e-5 of
+    scale; both walls (a warm-up call first) and each rank's peak GB."""
+    import torch
+
+    backend, cards = _dp_layout()
+    fe, wav = _seq_shard_inputs(seed, torch.device("cuda", 0))
+    want, one_s, one_gb = _timed_extract(lambda: fe(wav), torch.device("cuda", 0))
+    del fe, wav
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _dp_spawn("seq_shard", seed, backend)
+    spawn_s = time.perf_counter() - t0
+    errs = [float((r["out"] - want).abs().max()) for r in ranks]
+    scale = float(want.abs().max())
+    n_out = (SEQ_SHARD_SAMPLES - 465) // 160 + 1
+    checks = {
+        "shape": all(list(r["out"].shape) == [1, n_out, 512] for r in ranks) and list(want.shape) == [1, n_out, 512],
+        "finite": bool(torch.isfinite(want).all()) and all(bool(torch.isfinite(r["out"]).all()) for r in ranks),
+        "ranks_equal": all(torch.equal(r["out"], ranks[0]["out"]) for r in ranks),
+        "within_tol": max(errs) <= SEQ_SHARD_REL_TOL * scale,
+        "seq_axis": all(r["mesh"] == [DP_WORLD, i, "seq"] for i, r in enumerate(ranks)),
+    }
+    emit("seq_shard", nvidia_smi=smi, backend=backend, world_size=DP_WORLD, ranks_per_card=DP_WORLD // cards,
+         samples=SEQ_SHARD_SAMPLES, frames=n_out, channels=512, one_process_wall_s=one_s, one_process_peak_gb=one_gb,
+         rank_wall_s=[r["wall_s"] for r in ranks], rank_peak_gb=[r["peak_gb"] for r in ranks],
+         spawn_and_run_s=spawn_s, max_abs_err=errs, scale=scale, rel_tol=SEQ_SHARD_REL_TOL,
+         note=None if cards == DP_WORLD else "both ranks share cuda:0 over gloo: the walls are not a scaling figure",
+         checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"the sequence-sharded frontend disagrees with the 1-process extractor: {checks}")
+
+
+PHASE_S: dict = {}  # wall seconds of each phase that main() ran
+
+
+def _timed(fn):
+    """``fn`` with its wall seconds recorded in ``PHASE_S``."""
+    def run(*args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            PHASE_S[fn.__name__] = time.perf_counter() - t0
+    return run
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -4473,37 +4829,39 @@ def main() -> None:
         raise SystemExit(f"{PKG}/ is not beside chip_smoke.py: run it from a checkout of the repo")
     sys.path.insert(0, ROOT)
 
-    smi = phase_device()
+    smi = _timed(phase_device)()
     from audio2photoreal_tpu_torch.kernels import display_pack, flash_attn, raster
 
-    phase_build()
-    phase_sass()
-    attn = phase_kernels(args.seed)
-    ras = phase_raster(args.seed)
-    phase_slice_parity(args.seed)
-    phase_face_slice_parity(args.seed)
-    phase_render_parity(args.seed)
-    phase_guide_parity(args.seed)
-    launches = phase_main_path(args.seed, smi)
-    gen16 = phase_main_path_generate_bf16(args.seed, smi)
-    demo = phase_main_path_demo(args.seed, smi)
-    phase_demo_parity(args.seed)
-    phase_samplers(args.seed)
-    bwd = phase_train_kernels(args.seed)
-    phase_train_kernels_face(args.seed)
-    phase_train_parity(args.seed)
-    cache, index, stats = phase_feature_cache(args.seed)
-    phase_train_parity_face(args.seed)
-    train = phase_main_path_train(args.seed, smi)
-    train["face"] = phase_main_path_train_face(args.seed, smi, cache, index, stats)
+    _timed(phase_build)()
+    _timed(phase_sass)()
+    attn = _timed(phase_kernels)(args.seed)
+    ras = _timed(phase_raster)(args.seed)
+    _timed(phase_slice_parity)(args.seed)
+    _timed(phase_face_slice_parity)(args.seed)
+    _timed(phase_render_parity)(args.seed)
+    _timed(phase_render_bf16_parity)(args.seed)
+    _timed(phase_guide_parity)(args.seed)
+    launches = _timed(phase_main_path)(args.seed, smi)
+    render16 = _timed(phase_main_path_render_bf16)(args.seed, smi)
+    gen16 = _timed(phase_main_path_generate_bf16)(args.seed, smi)
+    demo = _timed(phase_main_path_demo)(args.seed, smi)
+    _timed(phase_demo_parity)(args.seed)
+    _timed(phase_samplers)(args.seed)
+    bwd = _timed(phase_train_kernels)(args.seed)
+    _timed(phase_train_kernels_face)(args.seed)
+    _timed(phase_train_parity)(args.seed)
+    cache, index, stats = _timed(phase_feature_cache)(args.seed)
+    _timed(phase_train_parity_face)(args.seed)
+    train = _timed(phase_main_path_train)(args.seed, smi)
+    train["face"] = _timed(phase_main_path_train_face)(args.seed, smi, cache, index, stats)
     del cache
     train_fwd = {path: counts[0] for path, counts in train.items()}
     train_bwd = {path: counts[1] for path, counts in train.items()}
-    bf16 = phase_kernels_bf16(args.seed)
-    phase_bf16_slice_parity(args.seed)
-    phase_train_parity_bf16(args.seed)
-    train16 = phase_main_path_train_bf16(args.seed, smi)
-    remat = phase_remat(args.seed, smi)
+    bf16 = _timed(phase_kernels_bf16)(args.seed)
+    _timed(phase_bf16_slice_parity)(args.seed)
+    _timed(phase_train_parity_bf16)(args.seed)
+    train16 = _timed(phase_main_path_train_bf16)(args.seed, smi)
+    remat = _timed(phase_remat)(args.seed, smi)
     # the remat phase's steps: the plain and the checkpointed step, forward and backward launches
     remat_fwd = {dt: sum(remat[f"remat_{dt}_{w}"][0] for w in ("plain", "remat")) for dt in ("float32", "bfloat16")}
     remat_bwd = {dt: sum(remat[f"remat_{dt}_{w}"][1] for w in ("plain", "remat")) for dt in ("float32", "bfloat16")}
@@ -4513,13 +4871,13 @@ def main() -> None:
     bwd16 = {**{path: counts[1] for path, counts in train16.items()}, "remat": remat_bwd["bfloat16"]}
     if min(fwd16.values()) < 1 or min(bwd16.values()) < 1:
         raise AssertionError(f"a bf16 path launched no bf16 attention kernel: {fwd16}, {bwd16}")
-    phase_vq_train_parity(args.seed)
-    phase_guide_train_parity(args.seed)
-    phase_main_path_train_vq_guide(args.seed, smi)
-    phase_avatar_train_parity(args.seed)
-    train_avatar = phase_main_path_train_avatar(args.seed, smi)
-    phase_convert_reference_tree(args.seed, smi)
-    ddp = phase_data_parallel(args.seed, smi)
+    _timed(phase_vq_train_parity)(args.seed)
+    _timed(phase_guide_train_parity)(args.seed)
+    _timed(phase_main_path_train_vq_guide)(args.seed, smi)
+    _timed(phase_avatar_train_parity)(args.seed)
+    train_avatar = _timed(phase_main_path_train_avatar)(args.seed, smi)
+    _timed(phase_convert_reference_tree)(args.seed, smi)
+    ddp = _timed(phase_data_parallel)(args.seed, smi)
     train_ddp, render_ddp = ddp["train_ddp"], ddp["render_ddp"]
     ddp_fwd = {"train_ddp": train_ddp.get(flash_attn.NAME, 0)}
     ddp_bwd = {"train_ddp": train_ddp.get(flash_attn.BWD_NAME, 0)}
@@ -4527,9 +4885,12 @@ def main() -> None:
     if min(ddp_fwd["train_ddp"], ddp_bwd["train_ddp"], train_ddp[raster.NAME], render_ddp[raster.NAME],
            render_ddp[display_pack.NAME]) < 1:
         raise AssertionError(f"a data-parallel path launched no kernel: {train_ddp}, {render_ddp}")
+    _timed(phase_seq_shard)(args.seed, smi)
+    r16, disp16 = render16["launches"], render16["display"]
 
     import torch
 
+    emit("phase_seconds", total_s=sum(PHASE_S.values()), **PHASE_S)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the f32 attention rows' bound is that of the arithmetic they do: 3xTF32
     attn_keys = ("max_abs_err", "ms", "plain_ms", "library_ms")
@@ -4575,18 +4936,30 @@ def main() -> None:
         {"name": raster.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/raster.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas_raster.py:143",
          "launches": launches[raster.NAME] + demo[raster.NAME] + train_avatar + train_ddp[raster.NAME]
-         + render_ddp[raster.NAME],
+         + render_ddp[raster.NAME] + r16["float32"][raster.NAME] + r16["bfloat16"][raster.NAME],
          "launches_by_path": {"render": launches[raster.NAME], "demo": demo[raster.NAME], "train_avatar": train_avatar,
-                              "train_ddp": train_ddp[raster.NAME], "render_ddp": render_ddp[raster.NAME]},
+                              "train_ddp": train_ddp[raster.NAME], "render_ddp": render_ddp[raster.NAME],
+                              "render_bf16_phase_f32": r16["float32"][raster.NAME],
+                              "render_bf16": r16["bfloat16"][raster.NAME]},
          "shape": [ras[k] for k in ("B", "H", "W", "faces")], "graph_ms": ras["graph_ms"],
          **{k: ras[k] for k in keys}},
         {"name": display_pack.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/display_pack.cu",
          "replaces": "audio2photoreal_tpu/ops/pallas/display_pack.py:56",
-         "launches": launches[display_pack.NAME] + demo[display_pack.NAME] + render_ddp[display_pack.NAME],
+         "launches": launches[display_pack.NAME] + demo[display_pack.NAME] + render_ddp[display_pack.NAME]
+         + r16["float32"][display_pack.NAME],
          "launches_by_path": {"render": launches[display_pack.NAME], "demo": demo[display_pack.NAME],
-                              "render_ddp": render_ddp[display_pack.NAME]},
+                              "render_ddp": render_ddp[display_pack.NAME],
+                              "render_bf16_phase_f32": r16["float32"][display_pack.NAME]},
          "shape": [disp[k] for k in ("B", "H", "W")], "exact_share": disp["exact_share"],
          "no_tex_rec_ms": disp["no_tex_rec_ms"], "packed_ms": disp["packed_ms"], **{k: disp[k] for k in keys}},
+        {"name": display_pack.BF16_NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/display_pack.cu",
+         "replaces": "audio2photoreal_tpu/ops/pallas/display_pack.py:56",
+         "launches": r16["bfloat16"][display_pack.BF16_NAME],
+         "launches_by_path": {"render_bf16": r16["bfloat16"][display_pack.BF16_NAME]},
+         "dtype": "bfloat16 texture, shadow and tex_rec; f32 mean and display values",
+         "shape": [disp16[k] for k in ("B", "H", "W")], "exact_share": disp16["exact_share"],
+         "no_tex_rec_ms": disp16["no_tex_rec_ms"], "packed_ms": disp16["packed_ms"],
+         **{k: disp16[k] for k in keys}},
     ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

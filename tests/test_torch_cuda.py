@@ -693,6 +693,27 @@ def test_display_kernel_matches_plain(cuda, B, H, W):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W", [(2, 512, 512), (3, 200, 2047), (8, 2048, 2048)])
+def test_display_kernel_bf16_matches_plain(cuda, B, H, W):
+    """The bf16 instantiation: a bf16 texture and shadow (an f32 shadow is
+    cast), tex_rec in bf16 bit for bit with the plain bf16 chain, the
+    display values by the f32 kernel's bar; counted as its own kernel."""
+    tex, shadow, mean, std = _display_inputs(cuda, B, H, W)
+    args = (tex.to(torch.bfloat16), shadow.to(torch.bfloat16), mean, std)
+    want, want_rec = display_pack.finalize_display_reference(*args)
+    before = {k: launch_counts[k] for k in (display_pack.NAME, display_pack.BF16_NAME)}
+    got, rec = display_pack.finalize_display(*args)
+    got_f32_shadow, _ = display_pack.finalize_display(args[0], shadow, mean, std)
+    packed = display_pack.finalize_display_packed(*args)
+    assert launch_counts[display_pack.BF16_NAME] - before[display_pack.BF16_NAME] == 3
+    assert launch_counts[display_pack.NAME] == before[display_pack.NAME]
+    assert rec.dtype == torch.bfloat16 and got.dtype == torch.float32 and torch.equal(rec, want_rec)
+    diff = (got - want).abs()
+    assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.9999
+    assert torch.equal(got_f32_shadow, got) and torch.equal(packed, display_pack.pack_rgb8(got))
+
+
+@pytest.mark.cuda
 def test_display_kernel_rejects_what_it_does_not_take(cuda):
     tex, shadow, mean, std = _display_inputs(cuda, 1, 8, 8)
     with pytest.raises(ValueError, match="float32"):
