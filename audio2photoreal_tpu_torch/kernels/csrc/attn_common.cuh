@@ -73,13 +73,19 @@ __device__ __forceinline__ uint32_t mask_row_term(const Dropout& d, int bh, int 
   return d.seed * 2654435761u + block * 40503u + (uint32_t)(gq % d.bq) * 3266489917u;
 }
 
-// The multiplier of element (row term, key column gk): 0 or mult.
-__device__ __forceinline__ float mask_mult(const Dropout& d, uint32_t row_term, int gk) {
-  uint32_t h = row_term + (uint32_t)gk * 668265263u;
+// The key column's part of the hash.
+__device__ __forceinline__ uint32_t mask_col_term(int gk) { return (uint32_t)gk * 668265263u; }
+
+// The hash's bits from the sum of its row and column terms.
+__device__ __forceinline__ uint32_t mask_bits(uint32_t h) {
   h = (h ^ (h >> 13)) * 2654435761u;
   h = (h ^ (h >> 17)) * 668265263u;
-  h ^= h >> 16;
-  return h >= d.threshold ? d.mult : 0.f;
+  return h ^ (h >> 16);
+}
+
+// The multiplier of element (row term, key column gk): 0 or mult.
+__device__ __forceinline__ float mask_mult(const Dropout& d, uint32_t row_term, int gk) {
+  return mask_bits(row_term + mask_col_term(gk)) >= d.threshold ? d.mult : 0.f;
 }
 
 // e^x as 2^(x log2 e) on the special-function unit: one FMUL and one

@@ -2,7 +2,8 @@
 and the autograd pair.  f32 tensors take ``csrc/flash_attn_fwd.cu`` and
 ``csrc/flash_attn_bwd.cu`` (3xTF32 on ``mma.sync``), bf16 tensors
 ``csrc/flash_attn_fwd_bf16.cu`` (``wgmma`` with TMA) and
-``csrc/flash_attn_bwd_bf16.cu`` (bf16 ``mma.sync`` with ``ldmatrix``).
+``csrc/flash_attn_bwd_bf16.cu`` (warp-specialised ``wgmma`` with TMA: a
+key-stationary dK/dV kernel and a query-stationary dQ kernel).
 
 Replaces ``audio2photoreal_tpu/ops/pallas/flash.py`` (``flash_attention``
 with its custom VJP -> ``_flash_fwd`` / ``_attn_kernel`` and ``_flash_bwd`` /
@@ -357,8 +358,10 @@ def fwd_split(B: int, H: int, Tq: int, Tk: int, Dh: int, dtype=torch.float32) ->
 
 
 def bwd_scratch_floats(B: int, H: int, Tq: int, Tk: int, Dh: int, dtype=torch.float32) -> int:
-    """Floats of f32 scratch the backward kernels for ``dtype`` take for
-    their dQ partials at this shape."""
+    """Floats of f32 scratch the backward kernels for ``dtype`` take at this
+    shape: the f32 kernels' dQ partials, one [B, H, Tq, Dh] plane per key
+    block; the bf16 kernels' three [B, H, Tq rounded up to the q tile] row
+    planes."""
     name, lib = _bwd_kernel(dtype)
     n = getattr(lib, f"{name}_scratch_floats")(B, H, Tq, Tk, Dh)
     if n < 0:
@@ -423,18 +426,21 @@ def flash_attention_bwd(
     drop = _dropout_args(dropout_rate, seed, Tq, Tk, block_q)
     name, lib = _bwd_kernel(q.dtype)
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=device) for x in (q, k, v))
-    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=device)
-    # the dQ partial of every key block, summed in a fixed order by the last kernel
-    dq_part = torch.empty(bwd_scratch_floats(B, H, Tq, Tk, Dh, q.dtype), dtype=torch.float32, device=device)
+    # f32: the rows' D and the dQ partial of every key block, summed in a fixed
+    # order by the last kernel; bf16: the rows' planes (lse, D, dropout row
+    # terms) that the dK/dV kernel reads by TMA, D among them
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=device) if q.dtype == torch.float32 else None
+    scratch = torch.empty(bwd_scratch_floats(B, H, Tq, Tk, Dh, q.dtype), dtype=torch.float32, device=device)
     valid = _valid_f32(kv_valid)  # held until the launches are enqueued
     with torch.cuda.device(device):
         err = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(valid), out.data_ptr(),
-                                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_part.data_ptr(),
+                                 dout.data_ptr(), lse.data_ptr(), _ptr(delta), scratch.data_ptr(),
                                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                                  _strides(q, k, v, out, dout, dq, dk, dv), B, H, Tq, Tk, Dh,
                                  int(causal), *drop, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+        raise RuntimeError(f"{name} launch failed: error {err} (a cudaError_t, or 10000 + the "
+                           "CUresult of a refused tensor map)")
     launch_counts[name] += 1
     return dq, dk, dv
 

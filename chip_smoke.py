@@ -14,10 +14,11 @@ exception and a nonzero exit.
 2. build: compile every kernel library from kernels/csrc/ (nvcc, sm_90a), one
    nvcc per library, all started together; ptxas registers and spills; the
    tensor-core instructions in each attention kernel's SASS (``cuobjdump
-   --dump-sass``), which every kernel with products (the forward, the
-   backward's dK/dV + dQ-partial kernel) must have: TF32 HMMA.1688 in the
-   f32 libraries (3xTF32), HGMMA (wgmma) in the bf16 forward and bf16
-   HMMA.16816 in the bf16 backward, and no TF32 HMMA in either bf16 library;
+   --dump-sass``), which every kernel with products (the forward; the f32
+   backward's dK/dV + dQ-partial kernel; the bf16 backward's dK/dV and dQ
+   kernels) must have: TF32 HMMA.1688 in the f32 libraries (3xTF32), HGMMA
+   (wgmma) in the bf16 forward and backward, and no TF32 HMMA in either bf16
+   library;
    and the fused multiply-adds (FFMA) in the raster library's kernels, of
    which the raster kernel must have none.
 3. kernel vs plain, attention: the CUDA attention kernel against its plain
@@ -145,21 +146,22 @@ exception and a nonzero exit.
    bf16 kernel's (none of the f32 one); 5 more DDIM steps of each timed and
    profiled.
 17. bf16 kernels: ``flash_attn_fwd_bf16.cu`` (wgmma, TMA) and
-   ``flash_attn_bwd_bf16.cu`` (bf16 mma.sync, ldmatrix) at the shapes of
+   ``flash_attn_bwd_bf16.cu`` (warp-specialised wgmma, TMA) at the shapes of
    the bf16 paths (generate B4 600 x 2000 and 600 x 600 at Dh 64 and 128,
    the cond-encoder B2 1998 x 1998; train B64 at Dh 64 and 128, dropout
    0.1), on the model's strided views: forward and gradients within 1e-2 of
    the largest plain output / gradient (the plain versions round where the
    TPU kernel rounds), the mask exact at rate 0.5 (q = 0 and one-hot v: each
    output counts kept keys), the backward twice bit for bit; wrapper, CUDA
-   graph, plain and SDPA (rate 0) times, bounds at 989 TFLOP/s, dQ scratch.
+   graph, plain and SDPA (rate 0) times, the kernels at rate 0 as well (like
+   for like with SDPA), bounds at 989 TFLOP/s, the backward's scratch.
 18. bf16 slice parity: the full-width pose and face models in bf16 (f32
    weights from ``--seed``), encode + cached CFG + DDIM-5, on the card
    against the CPU in bf16 and in f32: err(card bf16 vs CPU f32) <= 1.5
    err(CPU bf16 vs CPU f32) + 1e-3 scale.
 19. bf16 train parity: one full-width step at batch 4, pose on raw audio
    through the bf16 frontend and face on cached features, card bf16 against
-   CPU bf16 and CPU f32, at weight seeds ``--seed`` .. ``--seed`` + 2: loss
+   CPU bf16 and CPU f32, at weight seeds ``--seed`` and ``--seed`` + 1: loss
    1e-2 relative, each gradient tensor by the ratio bar on its relative L2
    error, params after AdamW within 2 lr, except an element whose bf16
    gradient took the other sign on the card, which may land 2 lr plus one
@@ -232,7 +234,7 @@ exception and a nonzero exit.
    full-width face and pose models (the guide and VQ as the pose dir's
    ``guide/`` and ``vq/``) and renderer bundle (2 cameras) answers three
    requests at DDIM-100 (8 s mono at 16 kHz, 8 s stereo at 44.1 kHz, 12 s
-   mono at 48 kHz), each rendered to a video, then a fourth (8 s mono at 16
+   mono at 48 kHz), the first rendered to a video, then a fourth (8 s mono at 16
    kHz) to a pipeline on phase 16's bf16 checkpoints, not rendered: per
    request the wall, face and pose DDIM, guide, ``audio_s_per_wall_s``,
    render and frames/s (with and without the video's write), each kernel's
@@ -512,11 +514,12 @@ def _sass_ops(lib: str, op: str) -> dict:
 
 def phase_sass() -> None:
     """The tensor-core instructions in each attention kernel: every kernel
-    with products must have some (the forward, and the backward's dK/dV
-    kernel, which also forms the dQ partials); the backward's delta and dQ
-    kernels are reductions.  The f32 kernels' are TF32 HMMA (3xTF32); the
-    bf16 forward's must be HGMMA (wgmma) and the bf16 backward's bf16
-    HMMA.16816, and neither bf16 library may hold a TF32 HMMA.  The raster
+    with products must have some (the forward; the f32 backward's dK/dV
+    kernel, which also forms the dQ partials; the bf16 backward's dK/dV and
+    dQ kernels); the f32 backward's delta and dQ-sum kernels and the bf16
+    backward's rows kernel are reductions.  The f32 kernels' are TF32 HMMA
+    (3xTF32); every bf16 product kernel's must be HGMMA (wgmma), and neither
+    bf16 library may hold a TF32 HMMA.  The raster
     kernel must have no fused f32 multiply-add (FFMA): its face ids equal the
     plain version's only because every product and sum rounds on its own.
     (The setup kernel's 1/det is a correctly rounded division, whose Newton
@@ -524,10 +527,11 @@ def phase_sass() -> None:
     from audio2photoreal_tpu_torch.kernels import build, flash_attn, raster
 
     kinds = ("attn_fwd_bf16_kernel", "attn_fwd_kernel", "attn_bwd_bf16_dkdv_kernel", "attn_bwd_dkdv_kernel",
-             "attn_bwd_bf16_dq_kernel", "attn_bwd_dq_kernel", "attn_bwd_bf16_delta_kernel", "attn_bwd_delta_kernel")
+             "attn_bwd_bf16_dq_kernel", "attn_bwd_dq_kernel", "attn_bwd_bf16_rows_kernel", "attn_bwd_delta_kernel")
+    reductions = ("attn_bwd_dq_kernel", "attn_bwd_bf16_rows_kernel", "attn_bwd_delta_kernel")
     # library -> the tensor-core opcode (a prefix) each of its product kernels must hold
     wanted = {flash_attn.NAME: "HMMA.1688.F32.TF32", flash_attn.BWD_NAME: "HMMA.1688.F32.TF32",
-              flash_attn.BF16_NAME: "HGMMA.", flash_attn.BF16_BWD_NAME: "HMMA.16816.F32.BF16"}
+              flash_attn.BF16_NAME: "HGMMA.", flash_attn.BF16_BWD_NAME: "HGMMA."}
     sources = {flash_attn.NAME: flash_attn.SOURCES, flash_attn.BWD_NAME: flash_attn.BWD_SOURCES,
                flash_attn.BF16_NAME: flash_attn.BF16_SOURCES, flash_attn.BF16_BWD_NAME: flash_attn.BF16_BWD_SOURCES}
     for name, op in wanted.items():
@@ -536,9 +540,9 @@ def phase_sass() -> None:
         for fn, found in ops.items():
             kind = next((k for k in kinds if k in fn), fn)
             dh = "128" if "Li128E" in fn else "64" if "Li64E" in fn else "?"
-            rows[f"{kind}<{dh}>"] = dict(found)
+            rows[f"{kind}<{dh}{', dropout' if 'Lb1E' in fn else ''}>"] = dict(found)
         emit("sass", library=name, wanted=op, tensor_core_instructions=rows)
-        products = {k: r for k, r in rows.items() if "_delta_" not in k and "_dq_" not in k}
+        products = {k: r for k, r in rows.items() if not k.startswith(reductions)}
         missing = [k for k, r in products.items() if not any(o.startswith(op) for o in r)]
         if missing or not products:
             raise AssertionError(f"{name}: no {op} in {missing or 'any kernel'}: {rows}")
@@ -2015,15 +2019,17 @@ def _mask_check_bf16(B, H, Tq, Tk, Dh, dseed, rate: float = 0.5, rows: int = 4) 
 
 def phase_kernels_bf16(seed: int) -> dict:
     """The bf16 attention kernels (flash_attn_fwd_bf16.cu on wgmma + TMA,
-    flash_attn_bwd_bf16.cu on bf16 mma.sync + ldmatrix) at the shapes of the
+    flash_attn_bwd_bf16.cu on warp-specialised wgmma + TMA) at the shapes of the
     bf16 generate and train paths, on the model's layout (strided head-split
     views): forward and backward against the plain versions (which round at
     the TPU kernel's points) within 1e-2 of the largest plain output /
     gradient, at the path's dropout; the mask exact at rate 0.5; the
     backward run twice bit for bit; times of the kernels, the plain versions
     (at ``plain_B``) and SDPA's forward and backward at rate 0 on the same
-    bf16 inputs; bounds at the bf16 tensor-core rate; the backward's dQ
-    scratch."""
+    bf16 inputs, the kernels at rate 0 too (the library's like for like; the
+    dropout's share is the difference); bounds at the bf16 tensor-core rate;
+    the backward's scratch (``dq_scratch_gb``: no dQ partials since the wgmma
+    design, only its row planes)."""
     import torch
     import torch.nn.functional as F
 
@@ -2087,7 +2093,12 @@ def phase_kernels_bf16(seed: int) -> dict:
         fwd_graph = _graph_ms(lambda: flash_attn._launch_fwd(q, k, v, *args, None, False))
         fwd0_graph = _graph_ms(lambda: flash_attn._launch_fwd(q, k, v, None, False, 0.0, 0, None, False))
         bwd_graph = _graph_ms(lambda: flash_attn.flash_attention_bwd(q, k, v, o2, lse2, do, *args))
-        del out, qg, kg, vg, o2, lse2
+        # the backward at rate 0, on the rate-0 forward's lse: SDPA's like for like
+        o0, lse0 = flash_attn._launch_fwd(q, k, v, None, False, 0.0, 0, None, True)
+        bwd0 = lambda: flash_attn.flash_attention_bwd(q, k, v, o0, lse0, do)  # noqa: E731
+        kb0 = _time_ms(bwd0)
+        bwd0_graph = _graph_ms(bwd0)
+        del out, qg, kg, vg, o2, lse2, o0, lse0
         torch.cuda.empty_cache()
         ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(ql, kl, vl)
@@ -2108,7 +2119,7 @@ def phase_kernels_bf16(seed: int) -> dict:
                    fwd_plain_ms_at_plain_B=plain_fwd,
                    fwd_library_ms=lib_fwd, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
                    bwd_ms=(kb1 + kb2) / 2, bwd_graph_ms=bwd_graph, bwd_plain_ms_at_plain_B=plain_bwd,
-                   bwd_library_ms=lib_bwd,
+                   bwd_rate0_ms=kb0, bwd_rate0_graph_ms=bwd0_graph, bwd_library_ms=lib_bwd,
                    bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by,
                    dq_scratch_gb=4 * flash_attn.bwd_scratch_floats(B, H, Tq, Tk, Dh, bf16) / 1e9)
         emit("kernels_bf16", kernel="flash_attn_fwd_bf16+flash_attn_bwd_bf16", **row)
@@ -2685,7 +2696,7 @@ def _bf16_step_parity(phase: str, cfg32, model32, batch: dict, t, noise, want_la
         raise AssertionError(f"the bf16 train step on the card disagrees with the CPU's: {row}")
 
 
-def phase_train_parity_bf16(seed: int, weight_seeds: int = 3) -> None:
+def phase_train_parity_bf16(seed: int, weight_seeds: int = 2) -> None:
     """One deterministic full-width bf16 train step at batch 4, card against
     CPU: pose on raw audio through the bf16 frontend, face on cached
     features; at weight seeds ``seed`` .. ``seed + weight_seeds - 1``, each
@@ -2829,7 +2840,8 @@ def phase_main_path_generate_bf16(seed: int, smi: str) -> dict:
     return launches
 
 
-# the demo server's requests: (seconds, sample rate, channels); the first three rendered
+# the demo server's requests: (seconds, sample rate, channels); the first rendered (the
+# others' renders, each half a compressed .npz write without ffmpeg, repeat its path)
 DEMO_REQUESTS = [(8, 16_000, 1), (8, 44_100, 2), (12, 48_000, 1)]
 DEMO_BF16_REQUEST = (8, 16_000, 1)
 DEMO_STEPS = 100  # the demo's DDIM-100
@@ -2896,8 +2908,8 @@ def phase_main_path_demo(seed: int, smi: str) -> dict:
     full-width face and pose models, the pose model's guide and VQ as its
     ``guide/`` and ``vq/``, and phase 8's renderer bundle (2 cameras):
     three requests (``DEMO_REQUESTS``: 8 s mono at 16 kHz, 8 s stereo at
-    44.1 kHz, 12 s mono at 48 kHz), each at DDIM-100 and rendered to a
-    video; a fourth (``DEMO_BF16_REQUEST``) to a pipeline on phase 16's bf16
+    44.1 kHz, 12 s mono at 48 kHz), each at DDIM-100, the first rendered to
+    a video; a fourth (``DEMO_BF16_REQUEST``) to a pipeline on phase 16's bf16
     checkpoints, not rendered.  Per request: wall, the face and pose DDIM,
     the guide, ``audio_s_per_wall_s`` (audio seconds over the generate
     wall), the render and frames/s, each kernel's launches (each must
@@ -2987,7 +2999,7 @@ def phase_main_path_demo(seed: int, smi: str) -> dict:
             raise AssertionError(f"demo request {i} checks failed: {checks}")
         return row
 
-    rows = [request(pipe, i, *r, render=True) for i, r in enumerate(DEMO_REQUESTS)]
+    rows = [request(pipe, i, *r, render=i == 0) for i, r in enumerate(DEMO_REQUESTS)]
     prof = _demo_step_profile(pipe, DEMO_REQUESTS[0][0], seed)
     del pipe
     pose16 = _demo_pose_dir("demo_pose_model_bf16", os.path.join(WORK, "pose_model_bf16"), guide_dir, vq_dir)
@@ -4929,8 +4941,12 @@ def main() -> None:
          "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:157", "launches": sum(bwd16.values()),
          "launches_by_path": bwd16, "shape": [bf16[k] for k in ("B", "H", "Tq", "Tk", "Dh")],
          "dropout": bf16["dropout"], "library_dropout": 0.0,
-         "arithmetic": "bf16 mma.sync m16n8k16 with ldmatrix (f32 accumulate); bound_ms at 989 TFLOP/s",
+         "arithmetic": "bf16 wgmma m64nNk16 (f32 accumulate), TMA into an mbarrier ring fed by a producer "
+                       "warpgroup (setmaxnreg); a key-stationary dK/dV kernel and a query-stationary dQ kernel "
+                       "(14 B·H·Tq·Tk·Dh flops); bound_ms: the function's 10 B·H·Tq·Tk·Dh at 989 TFLOP/s",
          "max_abs_err": bf16["max_abs_err"], "ms": bf16["bwd_ms"], "graph_ms": bf16["bwd_graph_ms"],
+         "rate0_ms": bf16["bwd_rate0_ms"], "rate0_graph_ms": bf16["bwd_rate0_graph_ms"],
+         "dq_scratch_gb": bf16["dq_scratch_gb"],
          "plain_ms": bf16["bwd_plain_ms_at_plain_B"], "library_ms": bf16["bwd_library_ms"],
          "bound_ms": bf16["bwd_bound_ms"], "bound_by": bf16["bwd_bound_by"]},
         {"name": raster.NAME, "route": "cuda", "source": f"{PKG}/kernels/csrc/raster.cu",

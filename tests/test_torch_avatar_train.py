@@ -20,6 +20,7 @@ parameter by about lr times the sign of its gradient).
 
 import json
 import os
+import shutil
 from typing import Any
 
 import flax
@@ -405,6 +406,7 @@ def test_train_avatar_resumes_and_the_bundle_renders_the_trained_weights(tmp_pat
     trained = _render(bundle)
     assert trained.shape == untrained.shape == (1, 48, 32, 3)
     assert not np.array_equal(trained, untrained)
+    shutil.rmtree(tmp_path)  # three step checkpoints, 0.28 GB
 
 
 def test_train_avatar_refuses_an_inference_only_bundle(tmp_path):

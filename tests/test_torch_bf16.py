@@ -34,6 +34,7 @@ Sizes are small (2 layers, latent 64, 2 heads, T <= 130), with T >= 128 where
 the flash gate must open on both sides.
 """
 
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -537,6 +538,7 @@ def test_bf16_train_then_generate(people, tmp_path, fmt, cached):
                                     output_dir=str(tmp_path / "samples")), allow_pickle=True).item()
     assert res["motions"].shape == (1, 104 if fmt == "pose" else 256, 1, Tm)
     assert res["motions"].dtype == np.float32 and np.isfinite(res["motions"]).all()
+    shutil.rmtree(tmp_path)  # the run's checkpoint, up to 0.4 GB
 
 
 def test_sampling_keeps_each_cast_until_its_parameter_changes():

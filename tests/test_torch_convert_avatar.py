@@ -25,6 +25,7 @@ them, the calibration): the port drops exactly the keys that JAX's
 import dataclasses
 import filecmp
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -194,6 +195,7 @@ def test_convert_avatar_checkpoint_writes_the_checkpoints_bundle(converted, tmp_
     src = BodyRenderer(cfg, assets.convert_static_assets(sa, cfg), model.state_dict(), cams, frame_batch=2,
                        device="cpu").render_sequence_multicam(pose, face)
     assert got.shape == (2, 48, 32, 3) and np.array_equal(got, src)
+    shutil.rmtree(tmp_path)  # the avatar's files and its converted bundle
 
 
 def test_frontal_rig_matches_jax(converted, tmp_path, monkeypatch):

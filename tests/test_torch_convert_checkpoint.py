@@ -90,7 +90,8 @@ def tree(tmp_path_factory):
     lip = os.path.join(root, "assets", "iter-0200000.pt")
     os.makedirs(os.path.dirname(lip))
     torch.save({"model_state_dict": _random(LipRegressor(), 4).state_dict()}, lip)
-    return root
+    yield root
+    shutil.rmtree(root)  # 0.9 GB
 
 
 @pytest.fixture(scope="module")
@@ -101,7 +102,8 @@ def converted(tree, tmp_path_factory):
     lip = os.path.join(tree, "assets", "iter-0200000.pt")
     port["lip"] = convert_checkpoint.convert_lip_checkpoint(lip, os.path.join(out, "port", "lip"))
     jax_out["lip"] = j_convert.convert_lip_checkpoint(lip, os.path.join(out, "jax", "lip"))
-    return port, jax_out
+    yield port, jax_out
+    shutil.rmtree(out)  # 1.2 GB
 
 
 def _config(d):
@@ -154,12 +156,14 @@ def test_converted_dirs_load_where_generate_reads_them(converted):
 def test_a_key_no_port_module_has_raises(tree, tmp_path):
     src = os.path.join(tree, "diffusion", "c1_pose")
     d = str(tmp_path / "c1_pose")
-    shutil.copytree(src, d)
+    shutil.copytree(src, d, copy_function=os.link)  # hard links: no second copy of the tree's files
     path = os.path.join(d, "model000000002.pt")
     sd = torch.load(path, weights_only=True)
+    os.remove(path)  # the link, not the tree's file
     torch.save(dict(sd, **{"seqTransDecoder.stack.0.bogus.weight": torch.zeros(2)}), path)
     with pytest.raises(RuntimeError, match="bogus"):
         convert_checkpoint.convert_diffusion_checkpoint(path, str(tmp_path / "out"))
+    shutil.rmtree(tmp_path)
 
 
 def test_convert_person_converts_the_avatar(tree, tmp_path):
@@ -175,7 +179,7 @@ def test_convert_person_converts_the_avatar(tree, tmp_path):
     from audio2photoreal_tpu_torch.render.mesh_vae import BodyAvatar, RendererConfig
 
     root = str(tmp_path / "checkpoints")
-    shutil.copytree(tree, root)
+    shutil.copytree(tree, root, copy_function=os.link)  # hard links: the converter only reads them
     avatar = os.path.join(root, "ca_body", "data", PERSON)
     os.makedirs(avatar)
     torch.save(reference_static_assets(RendererConfig(**SMALL)), os.path.join(avatar, "static_assets.pt"))
@@ -197,3 +201,4 @@ def test_convert_person_converts_the_avatar(tree, tmp_path):
     cams = np.load(os.path.join(out["renderer"], "cameras.npz"))
     assert list(cams["names"]) == ["400029"]
     np.testing.assert_array_equal(cams["Rt"][0], load_render_defaults(rd)["400029"].Rt)
+    shutil.rmtree(tmp_path)  # the converted tree, 0.5 GB

@@ -301,7 +301,7 @@ def _bf16_views(cuda, B, H, Tq, Tk, Dh, seed):
     (3, 2, 130, 517, 128, False, 0.1), (3, 2, 517, 130, 64, False, 0.0),  # ragged Tq and Tk
 ])
 def test_bf16_kernels_match_plain_at_the_model_shapes(cuda, B, H, Tq, Tk, Dh, masked, rate):
-    """The bf16 forward (wgmma, TMA) and backward (mma.sync, ldmatrix)
+    """The bf16 forward (wgmma, TMA) and backward (warp-specialised wgmma, TMA)
     through autograd against the plain versions, which round where the TPU
     kernel rounds; the bf16 kernels launch, the f32 ones do not; a rerun of
     both is bit-identical."""

@@ -31,6 +31,7 @@ gradient within 2e-5 of scale.
 """
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -84,7 +85,9 @@ def runs(tmp_path_factory):
             p.kill()
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
-    return single, [torch.load(d / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    ranks = [torch.load(d / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    shutil.rmtree(d)  # the ranks' results, 0.8 GB, are read
+    return single, ranks
 
 
 def _scaled(got, want, rel, what):

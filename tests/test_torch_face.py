@@ -22,6 +22,7 @@ frames make one full 120-frame chunk and a 30-frame remainder.
 """
 
 import functools
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -199,7 +200,8 @@ def face(tmp_path_factory):
     pm = generate.load_model(p_dir, "cpu")
     audio = (rng.randn(B, T * 1600, 2) * 0.5).astype(np.float32)
     x_T = rng.randn(B, T, 256).astype(np.float32)
-    return dict(root=root, jm=jm, params=params, sd=sd, pm=pm, j_dir=j_dir, p_dir=p_dir, audio=audio, x_T=x_T)
+    yield dict(root=root, jm=jm, params=params, sd=sd, pm=pm, j_dir=j_dir, p_dir=p_dir, audio=audio, x_T=x_T)
+    shutil.rmtree(root)  # the models' dirs, 0.4 GB
 
 
 def test_face_state_dict_round_trips_through_the_jax_converter(face):

@@ -397,3 +397,141 @@ def test_autograd_on_the_cpu_launches_no_kernel():
     flash_attention(q, k, v, None, False, 0.2, 3).sum().backward()
     assert launch_counts[flash_attn.NAME] == launch_counts[flash_attn.BWD_NAME] == 0
     assert all(x.grad is not None and torch.isfinite(x.grad).all() for x in (q, k, v))
+
+
+# ------------------------------------- the bf16 backward's decomposition -- #
+
+LOG2E = np.float32(1.4426950408889634)
+NEG_BIAS2 = np.float32(-1e9) * LOG2E  # csrc/flash_attn_bwd_bf16.cu: the masked logit in base 2
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _pad_rows(x: torch.Tensor, rows: int, value: float = 0.0) -> torch.Tensor:
+    """x [B, H, T, ...] with rows T..rows-1 set to ``value`` (TMA's zero fill,
+    or the padded planes' entries)."""
+    pad = torch.full((*x.shape[:2], rows - x.shape[2], *x.shape[3:]), value, dtype=x.dtype)
+    return torch.cat([x, pad], 2)
+
+
+def _emulate_bf16_backward(q, k, v, do, out, lse, kv_valid, causal, rate, seed, block_q,
+                           kb=128, qb=64, bq=128, bk=64):
+    """The bf16 backward kernels' decomposition (csrc/flash_attn_bwd_bf16.cu)
+    in f32 torch on bf16 inputs, with its tiles: the rows' planes (lse times
+    log2 e, D = dO . O, the dropout's row terms; a padded q row gets lse =
+    +inf and D = 0); the key-stationary kernel, per block of ``kb`` keys over
+    the q tiles of ``qb`` rows in order: S^T = K Q^T and dP^T = V dO^T, P^T =
+    2^(S^T scale log2 e + key bias - lse2) (a missing key's bias -inf, a
+    kv_valid-masked one's -1e9 log2 e; causal replaces the logit with the
+    latter; a row whose every key is masked takes the forward's uniform
+    1/Tk), dV += bf16(P o M)^T dO and dK += bf16(dS^T) Q; the
+    query-stationary kernel, per block of ``bq`` rows over the key tiles of
+    ``bk`` in order: S and dP again and dQ += bf16(dS) K, the sum over the
+    key tiles kept in f32 and scaled once.  Returns f32 (dq, dk, dv) before
+    their final rounding to bf16."""
+    B, H, Tq, Dh = q.shape
+    Tk = k.shape[2]
+    scale2 = np.float32(1.0 / Dh**0.5) * LOG2E
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    rows = -(-Tq // (qb * bq)) * qb * bq  # a multiple of both q tiles
+    keys = -(-Tk // (kb * bk)) * kb * bk
+    lse2 = _pad_rows(lse * LOG2E, rows, float("inf"))
+    delta = _pad_rows((dof * out.float()).sum(-1), rows)
+    Q, dO = _pad_rows(qf, rows), _pad_rows(dof, rows)
+    K, V = _pad_rows(kf, keys), _pad_rows(vf, keys)
+    mult = torch.ones(B, H, Tq, Tk)
+    if rate > 0:
+        mult = flash_attn.dropout_mask(B, H, Tq, Tk, rate, seed, block_q)
+    mult = _pad_rows(mult, rows, 1.0)
+    mult = torch.cat([mult, torch.ones(B, H, rows, keys - Tk)], 3)
+    bias = torch.zeros(B, keys)
+    if kv_valid is not None:
+        bias[:, :Tk] = torch.where(kv_valid > 0, 0.0, float(NEG_BIAS2))
+    bias[:, Tk:] = -float("inf")
+    masked = torch.arange(keys)[None] > torch.arange(rows)[:, None] + Tk - Tq  # [rows, keys]
+    T = lambda x: x.transpose(-1, -2)  # noqa: E731
+
+    def probs(s, qs, ks):  # s [B, H, q rows, keys]
+        x = s * scale2 + bias[:, None, None, ks]
+        if causal:
+            x = torch.where(masked[qs, ks], float(NEG_BIAS2), x)
+        # a row whose every key is masked: the forward's uniform average
+        full = lse2[:, :, qs, None] < NEG_BIAS2 / 2
+        return torch.where(full, (torch.arange(keys)[ks] < Tk).float() / Tk, torch.exp2(x - lse2[:, :, qs, None]))
+
+    dk, dv = torch.zeros(B, H, keys, Dh), torch.zeros(B, H, keys, Dh)
+    for k0 in range(0, keys, kb):  # the key-stationary kernel
+        ks = slice(k0, k0 + kb)
+        for q0 in range(0, -(-Tq // qb) * qb, qb):
+            qs = slice(q0, q0 + qb)
+            pt = T(probs(T(K[:, :, ks] @ T(Q[:, :, qs])), qs, ks))
+            mt = T(mult[:, :, qs, ks])
+            dpt = V[:, :, ks] @ T(dO[:, :, qs])
+            dv[:, :, ks] += _bf16_round(pt * mt) @ dO[:, :, qs]
+            dk[:, :, ks] += _bf16_round(pt * (dpt * mt - delta[:, :, None, qs])) @ Q[:, :, qs]
+    dq = torch.zeros(B, H, rows, Dh)
+    for q0 in range(0, Tq, bq):  # the query-stationary kernel
+        qs = slice(q0, q0 + bq)
+        acc = torch.zeros(B, H, bq, Dh)
+        for k0 in range(0, -(-Tk // bk) * bk, bk):
+            ks = slice(k0, k0 + bk)
+            p = probs(Q[:, :, qs] @ T(K[:, :, ks]), qs, ks)
+            dp = dO[:, :, qs] @ T(V[:, :, ks])
+            acc = acc + _bf16_round(p * (dp * mult[:, :, qs, ks] - delta[:, :, qs, None])) @ K[:, :, ks]
+        dq[:, :, qs] = acc
+    s = np.float32(1.0 / Dh**0.5)
+    return dq[:, :, :Tq] * s, dk[:, :, :Tk] * s, dv[:, :, :Tk]
+
+
+# (Tq, Tk, kv_valid lengths, causal, rate, block_q, tiles kb, qb, bq, bk); every
+# row keeps a key (the module's head note: fully masked rows are not compared)
+BF16_BWD_CASES = [
+    (70, 150, (120, 150), False, 0.1, None, (128, 64, 128, 64)),  # the kernels' tiles, ragged
+    (70, 150, (150, 150), True, 0.0, 16, (32, 16, 32, 16)),  # many small tiles: the order of every sum
+    (130, 150, (150, 141), True, 0.1, 16, (32, 16, 32, 16)),  # both masks on every tile edge
+    (64, 96, (96, 96), False, 0.0, None, (32, 32, 64, 32)),  # tiles that divide the shape
+]
+
+
+@pytest.mark.parametrize("Tq,Tk,lengths,causal,rate,block_q,tiles", BF16_BWD_CASES)
+def test_bf16_backward_decomposition_matches_plain_and_pallas(Tq, Tk, lengths, causal, rate, block_q, tiles):
+    """The bf16 backward kernels' tiling and rounding points (the emulation
+    above: key-stationary dK/dV, query-stationary dQ summed over the key
+    tiles in order, P o M and dS rounded to bf16 before their products, D
+    from the bf16 output) against the plain version, which rounds at the
+    same points but forms D as rowsum(P o dP), and against the JAX Pallas
+    backward in interpret mode on the same bf16 inputs, which also rounds
+    dO / rowsum to bf16: each gradient, rounded to bf16, within 1e-2 of the
+    largest plain or JAX gradient (the bf16 kernels' bar on the card,
+    chip_smoke.py BF16_TOL, and tests/test_torch_bf16.py ATTN_REL)."""
+    B, H, Dh, seed = 2, 2, 16, 31
+    rng = np.random.RandomState(Tq + Tk)
+    q, k, v, do = (torch.from_numpy(rng.randn(B, H, T, Dh).astype(np.float32)).to(torch.bfloat16)
+                   for T in (Tq, Tk, Tk, Tq))
+    kv_valid = torch.from_numpy((np.arange(Tk)[None] < np.array(lengths)[:, None]).astype(np.float32))
+    out = flash_attention_reference(q, k, v, kv_valid, causal, rate, seed, block_q)
+    logits = (q.float() @ k.float().transpose(-1, -2)) / Dh**0.5 + torch.where(kv_valid > 0, 0.0, -1e9)[:, None, None]
+    if causal:
+        logits = torch.where(torch.arange(Tk)[None] > torch.arange(Tq)[:, None] + Tk - Tq, -1e9, logits)
+    lse = torch.logsumexp(logits, -1)
+    got = [_bf16_round(x) for x in _emulate_bf16_backward(q, k, v, do, out, lse, kv_valid, causal, rate, seed,
+                                                          block_q, *tiles)]
+    want = flash_attention_bwd_reference(q, k, v, do, kv_valid, causal, rate, seed, block_q)
+    scale = max(w.float().abs().max().item() for w in want)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        err = (a - w.float()).abs().max().item()
+        assert err <= 1e-2 * scale, f"{name}: {err} > 1e-2 x {scale} (plain)"
+
+    def jfn(q_, k_, v_):
+        return jax_flash(q_, k_, v_, jnp.asarray(kv_valid.numpy()), jnp.array([seed], jnp.int32), causal, rate,
+                         block_q, True, "hash")
+
+    jb = [jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v, do)]
+    _, vjp = jax.vjp(jfn, *jb[:3])
+    jgrads = [np.asarray(x.astype(jnp.float32)) for x in vjp(jb[3])]
+    jscale = max(np.abs(x).max() for x in jgrads)
+    for name, a, w in zip(("dq", "dk", "dv"), got, jgrads):
+        err = np.abs(a.numpy() - w).max()
+        assert err <= 1e-2 * jscale, f"{name}: {err} > 1e-2 x {jscale} (Pallas)"

@@ -140,10 +140,13 @@ VQ = dict(nfeats=104, emb_width=16, code_dim=32, depth=2, kmeans_init=False)
 
 
 @pytest.fixture(scope="module")
-def guide_dirs(slice_setup):
+def guide_dirs(tmp_path_factory):
     """A tiny guide and VQ, saved for the JAX package (orbax ``ckpt``) and
-    for the port (``model.pt``), each with its ``config.json``."""
-    root, rng = slice_setup["root"], np.random.RandomState(4)
+    for the port (``model.pt``), each with its ``config.json``, in a dir of
+    their own that goes with the module (0.33 GB: the guides' frozen
+    frontends; ``slice_setup``, which tests/test_torch_demo.py shares, keeps
+    its dir)."""
+    root, rng = str(tmp_path_factory.mktemp("guides")), np.random.RandomState(4)
     perturb = lambda t: jax.tree_util.tree_map(  # noqa: E731
         lambda x: x + 0.1 * rng.randn(*x.shape).astype(np.float32) if x.ndim == 1 else x, t)
     gcfg, vcfg = j_config.GuideConfig(**GUIDE), j_config.VQConfig(**VQ)
@@ -161,7 +164,8 @@ def guide_dirs(slice_setup):
         "embed": vq.embed, "embed_avg": vq.embed_avg, "cluster_size": vq.cluster_size}}, block=True)
     torch.save(convert.guide_state_dict_from_jax(gparams), f"{dirs['p_guide']}/{generate.MODEL_FILE}")
     torch.save(convert.vqvae_state_dict_from_jax(vparams, vq), f"{dirs['p_vq']}/{generate.MODEL_FILE}")
-    return dirs
+    yield dirs
+    shutil.rmtree(root)
 
 
 def test_generate_with_guide_keyframes_matches_jax(slice_setup, guide_dirs, monkeypatch, tmp_path):
@@ -253,3 +257,4 @@ def test_generate_with_a_bf16_guide_frontend(slice_setup, guide_dirs, tmp_path):
                                     num_samples=1, timestep_respacing="ddim2", output_dir=str(tmp_path / "out")),
                   allow_pickle=True).item()
     assert np.isfinite(res["motions"]).all() and np.isfinite(res["keyframes"]).all()
+    shutil.rmtree(tmp_path)  # a guide's copy, 0.17 GB

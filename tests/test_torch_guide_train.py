@@ -23,6 +23,7 @@ bit for bit; the pre-net's backward on those features is held to float64.
 import copy
 import json
 import os
+import shutil
 
 import flax.linen as nn
 import jax
@@ -273,6 +274,7 @@ def test_train_guide_resumes_and_generate_samples_its_keyframes(vq_dir, tmp_path
     assert len(timings["step_s"]) == 1 and "cache_s" not in timings
     state = train_guide.train(root, d, vq, _gcfg(), DataConfig(**DATA), _tcfg(2), device="cpu")
     assert state.step == 2
+    shutil.rmtree(os.path.join(d, "ckpt"))  # resumed: generate reads model.pt (the step files hold 466 MB each)
     logged = [json.loads(l) for l in open(os.path.join(d, "log.jsonl"))]
     assert [r["step"] for r in logged] == [0, 1] and all(np.isfinite(r["loss"]) for r in logged)
     gcfg = load_config(d)["guide"]
@@ -294,3 +296,4 @@ def test_train_guide_resumes_and_generate_samples_its_keyframes(vq_dir, tmp_path
     train_guide.train(root, cached, vq, _gcfg(), DataConfig(**DATA), _tcfg(1), cache_audio_features=True,
                       device="cpu", timings=timings)
     assert timings["cache_s"] > 0 and os.path.exists(os.path.join(cached, "model.pt"))
+    shutil.rmtree(tmp_path)  # 0.9 GB of checkpoints, read

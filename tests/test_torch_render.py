@@ -13,6 +13,7 @@ tree through ``train/convert.py:convert_body_avatar``.
 import dataclasses
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -248,6 +249,7 @@ def test_generate_plot_writes_each_sample_through_a_bundle(tmp_path, avatar):
     with pytest.raises(ValueError, match="other audio"):
         generate.generate(model_dir, root, num_samples=1, timestep_respacing="ddim2", device="cpu",
                           output_dir=out_dir, plot=True, face_codes=face_path, renderer_path=bundle)
+    shutil.rmtree(tmp_path)  # a person, a model, a bundle and their video frames
 
 
 def test_generate_plot_renders_every_repetition(tmp_path, avatar):
@@ -277,6 +279,7 @@ def test_generate_plot_renders_every_repetition(tmp_path, avatar):
         for i in range(2):
             assert got[i, 0].shape == got[i, 1].shape == (int(res["lengths"][i]), 48, 64, 3)
             assert not np.array_equal(got[i, 0], got[i, 1])  # each repetition its own motion
+    shutil.rmtree(tmp_path)  # a person, a model, a bundle and their video frames
 
 
 def test_bundle_with_the_jax_only_fields_loads(tmp_path, avatar):

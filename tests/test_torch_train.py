@@ -22,6 +22,7 @@ a near-zero gradient's sign can differ) and 99.9% of them within 1e-6.
 import copy
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -491,6 +492,7 @@ def test_train_writes_a_checkpoint_that_resumes_and_samples(person, tmp_path):
     res = np.load(generate(run, person, num_samples=1, timestep_respacing="ddim2", device="cpu",
                            output_dir=str(tmp_path / "samples")), allow_pickle=True).item()
     assert res["motions"].shape == (1, 104, 1, T) and np.isfinite(res["motions"]).all()
+    shutil.rmtree(tmp_path)  # two runs' checkpoints
 
 
 def test_generate_samples_from_the_ema(person, tmp_path):
@@ -520,6 +522,7 @@ def test_generate_samples_from_the_ema(person, tmp_path):
     with pytest.warns(UserWarning, match="no EMA"):
         without = motions(plain, "no_ema", use_ema=True)
     np.testing.assert_array_equal(without, motions(plain, "plain_raw"))
+    shutil.rmtree(tmp_path)  # two runs' checkpoints
 
 
 def test_train_runs_on_the_card_by_default(person, tmp_path, monkeypatch):
@@ -542,6 +545,7 @@ def test_train_runs_with_remat_and_writes_tensorboard_events(person, tmp_path):
     assert state.step == 2 and state.model.cfg.remat
     assert [json.loads(line)["step"] for line in open(os.path.join(run, "log.jsonl"))] == [0, 1]
     assert any(f.startswith("events.out.tfevents") for f in os.listdir(run))
+    shutil.rmtree(tmp_path)
 
 
 # ------------------------------------------------------------- remat -- #
@@ -742,3 +746,4 @@ def test_face_train_on_the_cache_resumes_and_samples(face_person, tmp_path):
     res = np.load(generate(run, face_person, num_samples=1, timestep_respacing="ddim2", device="cpu",
                            output_dir=str(tmp_path / "samples")), allow_pickle=True).item()
     assert res["motions"].shape == (1, 256, 1, TF) and np.isfinite(res["motions"]).all()
+    shutil.rmtree(tmp_path)  # two runs' checkpoints, 1 GB
