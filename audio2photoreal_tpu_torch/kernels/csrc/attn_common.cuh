@@ -176,14 +176,17 @@ inline int choose_split(int tiles, int n_kt, int slots, int max_split) {
 // through distributed shared memory and in rank order, and writes them
 // (rows past Tq are not stored) and their log-sum-exp (when lse_row, the
 // head's [Tq] row of it, is not null).  w [BQ][MAX_SPLIT] is this block's
-// scratch.
-template <int D, int BQ, int LDA, int MAX_SPLIT, int THREADS, typename T>
+// scratch.  The work is shared by the THREADS threads from FIRST on; the
+// block's other threads call combine_split_idle, which passes the same
+// barriers.
+template <int D, int BQ, int LDA, int MAX_SPLIT, int THREADS, typename T, int FIRST = 0>
 __device__ __forceinline__ void combine_split(const float* acc, const float* m, const float* l, float* w,
                                               unsigned rank, int split, int q0, int Tq, float* lse_row,
                                               T* oh, long long ost) {
+  const int tid = (int)threadIdx.x - FIRST;
   cluster_sync();  // every block's partials are written and visible
   const int r0 = (int)rank * BQ / split, r1 = ((int)rank + 1) * BQ / split;
-  for (int row = r0 + threadIdx.x; row < r1; row += THREADS) {
+  for (int row = r0 + tid; row < r1; row += THREADS) {
     float mi[MAX_SPLIT], mmax = -INFINITY, lsum = 0.f;
 #pragma unroll
     for (int i = 0; i < MAX_SPLIT; ++i) {
@@ -200,7 +203,7 @@ __device__ __forceinline__ void combine_split(const float* acc, const float* m, 
   }
   __syncthreads();
   constexpr int C4 = D / 4;
-  for (int idx = threadIdx.x; idx < (r1 - r0) * C4; idx += THREADS) {
+  for (int idx = tid; idx < (r1 - r0) * C4; idx += THREADS) {
     const int row = r0 + idx / C4, c = (idx % C4) * 4, gq = q0 + row;
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -222,6 +225,14 @@ __device__ __forceinline__ void combine_split(const float* acc, const float* m, 
     }
   }
   cluster_sync();  // no block leaves while another still reads its shared memory
+}
+
+// combine_split's barriers, for the threads of a block that take no part in
+// its work.
+__device__ __forceinline__ void combine_split_idle() {
+  cluster_sync();
+  __syncthreads();
+  cluster_sync();
 }
 
 // ------------------------------------------------------------ cp.async --

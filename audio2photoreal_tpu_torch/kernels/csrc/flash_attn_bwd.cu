@@ -21,6 +21,10 @@
 //      tile: S^T = K Q^T and dP^T = V dO^T, then P^T = exp(S^T - lse) with
 //      the forward's scale, kv_valid bias and causal rule, and accumulates in
 //      registers dV += (P o M)^T dO and dK += dS^T Q, dS = P o (dP o M - D).
+//      A row whose every key is masked has its lse near -1e9, where f32
+//      holds only multiples of 64, so exp(x - lse) cannot be formed there;
+//      the forward averaged such a row uniformly over the Tk keys, and so P
+//      is 1/Tk for each key that exists, as in the bf16 backward.
 //      With the keys as rows, each of those products' A operand is a K/V
 //      tile or an accumulator already in registers.  The block then writes
 //      dS^T to shared memory and forms this key block's share of dQ, dS K,
@@ -151,6 +155,7 @@ attn_bwd_dkdv_kernel(BwdArgs a) {
   const float* valid = a.kv_valid ? a.kv_valid + (size_t)b * a.Tk : nullptr;
   const int causal_off = a.Tk - a.Tq;
   const int n_qt = (a.Tq + QB - 1) / QB;
+  const float inv_tk = 1.f / a.Tk;
 
   auto load_q = [&](int qt, int stage) {
     T* sQ = sRing + (2 * stage) * QB * LDS;
@@ -239,7 +244,7 @@ attn_bwd_dkdv_kernel(BwdArgs a) {
           if (q_ok && key_ok[r]) {
             float x = st[j][2 * r + e] * a.scale + key_bias[r];
             if (a.causal && gk > gq + causal_off) x = NEG_BIAS;
-            p = attn::exp_fast(x - lse);
+            p = lse < 0.5f * NEG_BIAS ? inv_tk : attn::exp_fast(x - lse);  // a fully masked row
           }
           const float mm = a.drop.on ? attn::mask_mult(a.drop, rt, gk) : 1.f;
           st[j][2 * r + e] = p * mm;                              // (P o M)^T

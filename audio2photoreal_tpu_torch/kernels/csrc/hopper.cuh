@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels
 // (flash_attn_fwd_bf16.cu, flash_attn_bwd_bf16.cu): mbarriers, TMA copies and
-// their tensor maps, warpgroup MMAs (wgmma) on 128-byte-swizzled tiles, and
-// setmaxnreg.
+// their tensor maps, warpgroup MMAs (wgmma) on 128-byte-swizzled tiles,
+// setmaxnreg and named barriers.
 //
 // A [B, H, T, Dh] bf16 operand arrives by TMA as column chunks of SPAN = 64
 // bf16 (one 128-byte swizzle row): a tile of R rows is [Dh / 64][R][64] in
@@ -118,6 +118,16 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Named barriers (ids 1-15; 0 is __syncthreads) over `threads` threads, a
+// multiple of 32: sync waits until that many have arrived, its own warp's
+// threads counted; arrive counts this warp and goes on.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // wgmma m64nNk16, bf16 operands, f32 accumulator: d[64 x N] is held by the

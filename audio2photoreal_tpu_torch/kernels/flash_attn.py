@@ -1,9 +1,11 @@
 """Attention forward and backward: the CUDA kernels, their plain versions,
 and the autograd pair.  f32 tensors take ``csrc/flash_attn_fwd.cu`` and
 ``csrc/flash_attn_bwd.cu`` (3xTF32 on ``mma.sync``), bf16 tensors
-``csrc/flash_attn_fwd_bf16.cu`` (``wgmma`` with TMA) and
-``csrc/flash_attn_bwd_bf16.cu`` (warp-specialised ``wgmma`` with TMA: a
-key-stationary dK/dV kernel and a query-stationary dQ kernel).
+``csrc/flash_attn_fwd_bf16.cu`` (warp-specialised ``wgmma`` with TMA: a
+producer warpgroup, two consumers taking turns on the tensor cores, a
+persistent grid) and ``csrc/flash_attn_bwd_bf16.cu`` (warp-specialised
+``wgmma`` with TMA: a key-stationary dK/dV kernel and a query-stationary dQ
+kernel).
 
 Replaces ``audio2photoreal_tpu/ops/pallas/flash.py`` (``flash_attention``
 with its custom VJP -> ``_flash_fwd`` / ``_attn_kernel`` and ``_flash_bwd`` /

@@ -145,8 +145,8 @@ exception and a nonzero exit.
    keyframes DDIM-500 CFG 2.0, 2 clips of 20 s; every attention launch the
    bf16 kernel's (none of the f32 one); 5 more DDIM steps of each timed and
    profiled.
-17. bf16 kernels: ``flash_attn_fwd_bf16.cu`` (wgmma, TMA) and
-   ``flash_attn_bwd_bf16.cu`` (warp-specialised wgmma, TMA) at the shapes of
+17. bf16 kernels: ``flash_attn_fwd_bf16.cu`` and ``flash_attn_bwd_bf16.cu``
+   (warp-specialised wgmma, TMA) at the shapes of
    the bf16 paths (generate B4 600 x 2000 and 600 x 600 at Dh 64 and 128,
    the cond-encoder B2 1998 x 1998; train B64 at Dh 64 and 128, dropout
    0.1), on the model's strided views: forward and gradients within 1e-2 of
@@ -2018,8 +2018,8 @@ def _mask_check_bf16(B, H, Tq, Tk, Dh, dseed, rate: float = 0.5, rows: int = 4) 
 
 
 def phase_kernels_bf16(seed: int) -> dict:
-    """The bf16 attention kernels (flash_attn_fwd_bf16.cu on wgmma + TMA,
-    flash_attn_bwd_bf16.cu on warp-specialised wgmma + TMA) at the shapes of the
+    """The bf16 attention kernels (flash_attn_fwd_bf16.cu and
+    flash_attn_bwd_bf16.cu, both warp-specialised wgmma + TMA) at the shapes of the
     bf16 generate and train paths, on the model's layout (strided head-split
     views): forward and backward against the plain versions (which round at
     the TPU kernel's points) within 1e-2 of the largest plain output /
@@ -4931,7 +4931,9 @@ def main() -> None:
          "replaces": "audio2photoreal_tpu/ops/pallas/flash.py:124", "launches": sum(fwd16.values()),
          "launches_by_path": fwd16, "shape": [bf16[k] for k in ("B", "H", "Tq", "Tk", "Dh")],
          "dropout": "replayed hash mask in the kernel (training); these numbers are at rate 0",
-         "arithmetic": "bf16 wgmma m64nNk16 (f32 accumulate), TMA; bound_ms at 989 TFLOP/s",
+         "arithmetic": "bf16 wgmma m64nNk16 (f32 accumulate), TMA into an mbarrier ring fed by a producer "
+                       "warpgroup (setmaxnreg), two consumer warpgroups taking turns on the tensor cores, a "
+                       "persistent grid; bound_ms at 989 TFLOP/s",
          "max_abs_err": bf16["fwd_rate0_max_abs_err"], "ms": bf16["fwd_rate0_ms"],
          "graph_ms": bf16["fwd_rate0_graph_ms"], "plain_ms": bf16["fwd_rate0_plain_ms_at_plain_B"],
          "library_ms": bf16["fwd_library_ms"],

@@ -267,6 +267,42 @@ def test_backward_kernel_rejects_what_it_does_not_take(cuda):
         flash_attn.flash_attention_bwd(q, q, q, q, lse, q, dropout_rate=1.0)
 
 
+def _uniform_row_reference(q, k, v, do, kv_valid):
+    """The forward and its softmax backward in float64 where a row whose keys
+    are all masked takes the uniform average over the Tk keys (P = 1/Tk), as
+    the forward's -1e9 gives it: O = P V, dV = P^T dO, dS = P o (dO V^T - D)
+    with D = rowsum(dO o O), dQ = scale dS K, dK = scale dS^T Q."""
+    qd, kd, vd, gd = (x.double() for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    valid = (kv_valid > 0)[:, None, None, :]
+    p = torch.softmax((qd @ kd.transpose(-1, -2) * scale).masked_fill(~valid, float("-inf")), -1)
+    p = torch.where(valid.any(-1, keepdim=True), p, torch.full_like(p, 1.0 / k.shape[2]))
+    o = p @ vd
+    ds = p * (gd @ vd.transpose(-1, -2) - (gd * o).sum(-1, keepdim=True))
+    return o, ds @ kd * scale, ds.transpose(-1, -2) @ qd * scale, p.transpose(-1, -2) @ gd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_of_a_fully_masked_row_is_the_uniform_averages(cuda, dtype):
+    """Batch element 0's keys are all masked by kv_valid: the forward
+    averages each of its rows over the Tk keys, and both backward kernels
+    give that average's gradients (P = 1/Tk on those rows), not exp(x - lse)
+    of a lse that f32 holds only to 64 there."""
+    B, H, Tq, Tk, Dh = 2, 2, 77, 203, 64
+    q, k, v, do, _ = _attn_case(cuda, B, H, Tq, Tk, Dh, False, dtype)
+    kv_valid = torch.ones(B, Tk, device=cuda)
+    kv_valid[0] = 0.0
+    kv_valid[1, 150:] = 0.0
+    out, *grads = _kernel_grads(q, k, v, do, kv_valid, False, 0.0, 0)
+    want_out, *want = _uniform_row_reference(q, k, v, do, kv_valid)
+    assert (out.double() - want_out).abs().max().item() <= TOL[dtype]
+    scale = max(w.abs().max().item() for w in want)
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want):
+        err = (a.double() - w).abs().max().item()
+        assert err <= GRAD_TOL[dtype] * scale, (name, err)
+
+
 # ------------------------------------- the bf16 kernels at the model shapes -- #
 
 BF16_REL = 1e-2  # of the largest plain output / gradient
@@ -348,6 +384,49 @@ def test_bf16_dropout_mask_is_exact(cuda, B, Tq, Tk, Dh, block_q):
     mask = flash_attn.dropout_mask(B, H, Tq, Tk, rate, seed, block_q, cuda)
     want = torch.matmul(mask, onehot.float()) / Tk
     assert (got.float() - want).abs().max().item() <= 0.4 * 2.0 / Tk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Tq,Tk,Dh,mask,rate", [
+    (2, 2, 1, 37, 64, None, 0.0), (2, 2, 1, 2000, 128, "kv_valid", 0.1),  # one q row
+    (2, 4, 600, 37, 128, "causal", 0.0),  # rows 0..562 see no key: each averages all 37
+    (2, 4, 600, 600, 64, "kv_valid+causal", 0.1), (2, 3, 1998, 37, 64, "kv_valid", 0.0),
+    (1, 4, 1998, 1998, 128, None, 0.1), (2, 2, 1998, 2000, 64, "kv_valid", 0.1),
+    (1, 1, 600, 2000, 64, None, 0.0), (1, 1, 600, 600, 128, None, 0.1),  # fewer tiles than SMs
+    (64, 4, 600, 600, 64, None, 0.1), (64, 4, 600, 2000, 128, None, 0.0),  # many waves
+])
+def test_bf16_forward_edges_of_its_tiles_and_schedule(cuda, B, H, Tq, Tk, Dh, mask, rate):
+    """The bf16 forward on the model's strided views at q and key counts off
+    its tiles, partly masked rows, causal rows, dropout, grids below one wave
+    and many waves: the output within 2e-2 of the largest plain element and
+    its log-sum-exp within 1e-5 of the plain one, both bit-identical on a
+    rerun; the backward, fed that log-sum-exp, within the file's bar."""
+    q, k, v, do = _bf16_views(cuda, B, H, Tq, Tk, Dh, B + Tq + Tk + Dh)
+    kv_valid = None
+    if mask and "kv_valid" in mask:  # the first key stays valid, so no causal row loses every key
+        lengths = torch.tensor([max(1, Tk * (b + 1) // (B + 1)) for b in range(B)], device=cuda)
+        kv_valid = (torch.arange(Tk, device=cuda)[None] < lengths[:, None]).float()
+    causal = bool(mask and "causal" in mask)
+    args = (kv_valid, causal, rate, 97)
+    first, second = (flash_attn._launch_fwd(q, k, v, *args, None, True) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    want = flash_attention_reference(q, k, v, *args)
+    scale = want.float().abs().max().item()
+    assert (first[0].float() - want.float()).abs().max().item() <= 2e-2 * scale
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / Dh**0.5
+    bias = flash_attn._bias(q, k, kv_valid, causal)
+    want_lse = torch.logsumexp(logits if bias is None else logits + bias, -1)
+    seen = want_lse > -1e8  # rows with a visible key; the others sit at the -1e9 of their average
+    assert ((first[1] - want_lse)[seen].abs().max().item()
+            <= 1e-5 * max(1.0, want_lse[seen].abs().max().item()))
+    assert (first[1][~seen] < -1e8).all()
+    del logits, want_lse
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    grads = torch.autograd.grad(flash_attention(qg, kg, vg, *args), (qg, kg, vg), do)
+    want_grads = flash_attention_bwd_reference(q, k, v, do, *args)
+    gscale = max(w.float().abs().max().item() for w in want_grads)
+    for name, a, w in zip(("dq", "dk", "dv"), grads, want_grads):
+        assert (a.float() - w.float()).abs().max().item() <= GRAD_TOL[torch.bfloat16] * gscale, name
 
 
 @pytest.mark.cuda

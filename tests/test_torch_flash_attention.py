@@ -128,6 +128,48 @@ def test_hash_mask_matches_jax_bit_for_bit(seed, block):
         np.testing.assert_array_equal(got, want)
 
 
+def _bf16_forward_hash(seed, block, n_rows, Tk, rate, BK=128):
+    """The bf16 forward kernel's dropout sequence (flash_attn_fwd_bf16.cu),
+    in numpy uint32: each row's term, plus a column base per key tile k0 and
+    quad lane t, (k0 + 2t) * C_col, then the constant (8j + e) * C_col of
+    element (j, e), JAX's mix, and the keep test folded into the multiplier
+    (p * mult if kept, else 0), as [n_rows, Tk] multipliers of p = 1."""
+    u = np.uint32
+    c_col = u(668265263)
+    mult = np.float32(flash_attn._keep_scale(rate))
+    out = np.full((n_rows, Tk), -1.0, np.float32)
+    with np.errstate(over="ignore"):
+        rows = np.arange(n_rows, dtype=u)
+        row_term = u(seed) * u(2654435761) + u(block) * u(40503) + rows * u(3266489917)
+        for k0 in range(0, Tk, BK):
+            for t in range(4):
+                rb = row_term + u(k0 + 2 * t) * c_col
+                for j in range(BK // 8):
+                    for e in range(2):
+                        col = k0 + 8 * j + 2 * t + e
+                        if col >= Tk:
+                            continue
+                        h = rb + u(8 * j + e) * c_col
+                        h = (h ^ (h >> u(13))) * u(2654435761)
+                        h = (h ^ (h >> u(17))) * u(668265263)
+                        keep = (h ^ (h >> u(16))) >= u(int(rate * 2**32))
+                        out[:, col] = np.where(keep, np.float32(1.0) * mult, np.float32(0.0))
+    assert (out >= 0).all()  # every column written once
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 23, 2**31 + 5, 2**32 - 1])
+@pytest.mark.parametrize("block", [0, 7, 2**31, 2**32 - 3])
+def test_bf16_forward_hash_sequence_matches_jax_bit_for_bit(seed, block):
+    """The bf16 forward steps the hash's column term from a base per key tile
+    and folds the keep test into the multiplier: that sequence, over three key
+    tiles (the last one partial) and sums that wrap uint32, gives JAX's
+    hash_mask_mult bit for bit at three rates."""
+    for rate in (0.1, 0.5, 0.9):
+        want = np.asarray(j_flash.hash_mask_mult(jnp.uint32(seed), jnp.uint32(block), (40, 300), rate))
+        np.testing.assert_array_equal(_bf16_forward_hash(seed, block, 40, 300, rate), want)
+
+
 def test_resolve_block_q_matches_jax():
     shapes = [(600, 600), (600, 2000), (128, 130), (160, 2000), (2000, 2000), (13, 37), (1, 1), (599, 2001),
               (300, 8000), (1998, 1998)]
