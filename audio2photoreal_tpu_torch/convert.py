@@ -5,7 +5,9 @@ The inverse of ``audio2photoreal_tpu/train/convert.py:convert_film_denoiser``
 model, ``convert_lip_regressor`` and ``encoder_layer_rotary``), of
 ``convert_guide`` and ``convert_vqvae`` (the guide LM and the residual VQ
 with its codebook state) and of ``convert_body_avatar`` (the ca_body render
-avatar): the port's
+avatar), and, for the modules the JAX converter does not cover
+(``AudioTcn``, ``Wav2VecDownsampler``, the ELR layers), the same layout
+rules applied to their JAX trees: the port's
 modules keep the torch reference's state-dict names, so the same mapping
 read backwards carries weights trained by the JAX package into the port.
 
@@ -16,6 +18,9 @@ read backwards carries weights trained by the JAX package into the port.
 - weight-norm {v, g, bias} -> ``weight_v`` / ``weight_g`` / ``bias``, conv
   kernels [kh, kw, Cin, Cout] -> [Cout, Cin, kh, kw], untied biases
   [H, W, C] -> [C, H, W]
+- ELR weights: Linear [in, out] -> [out, in]; conv [kh, kw, Cin/g, Cout]
+  -> [Cout, Cin/g, kh, kw] and transposed conv [kh, kw, Cout/g, Cin] ->
+  [Cin, Cout/g, kh, kw], one permutation for both
 """
 
 from __future__ import annotations
@@ -90,6 +95,54 @@ def wav2vec_aggregator_state_dict_from_jax(p: Mapping[str, Any], prefix: str) ->
         _conv(sd, f"{prefix}.conv_layers.{i}.1", p[f"conv{i}_kernel"], p[f"conv{i}_bias"])
         _norm(sd, f"{prefix}.conv_layers.{i}.3", p[f"norm{i}"])
         i += 1
+    return sd
+
+
+def wav2vec_downsampler_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """Wav2VecDownsampler params -> ``conv1``, ``conv2``, ``norm``."""
+    p = params["params"] if "params" in params else params
+    sd: StateDict = {}
+    for n in ("conv1", "conv2"):
+        _conv(sd, n, p[f"{n}_kernel"], p[f"{n}_bias"])
+    _norm(sd, "norm", p["norm"])
+    return sd
+
+
+def audio_tcn_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """AudioTcn params -> the frozen ``wav2vec_extractor`` /
+    ``wav2vec_aggregator`` (fairseq names), ``w2v_post``, ``tcn.{i}`` and
+    ``final``."""
+    p = params["params"] if "params" in params else params
+    sd: StateDict = {}
+    if "wav2vec_extractor" in p:
+        sd.update(wav2vec_extractor_state_dict_from_jax(p["wav2vec_extractor"], "wav2vec_extractor"))
+        sd.update(wav2vec_aggregator_state_dict_from_jax(p["wav2vec_aggregator"], "wav2vec_aggregator"))
+        _conv(sd, "w2v_post", p["w2v_post_kernel"], p["w2v_post_bias"])
+    i = 0
+    while f"tcn{i}_kernel" in p:
+        _conv(sd, f"tcn.{i}", p[f"tcn{i}_kernel"], p[f"tcn{i}_bias"])
+        i += 1
+    _conv(sd, "final", p["final_kernel"], p["final_bias"])
+    return sd
+
+
+def linear_elr_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """LinearELR params -> ``weight`` [out, in] (and ``bias``)."""
+    p = params["params"] if "params" in params else params
+    sd: StateDict = {"weight": _a(np.asarray(p["weight"]).T)}
+    if "bias" in p:
+        sd["bias"] = _a(p["bias"])
+    return sd
+
+
+def conv2d_elr_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """Conv2dELR params, plain or transposed -> ``weight`` in the torch
+    layout (and ``bias``, an untied one [H, W, C] as [C, H, W])."""
+    p = params["params"] if "params" in params else params
+    sd: StateDict = {"weight": _a(np.asarray(p["weight"]).transpose(3, 2, 0, 1))}
+    if "bias" in p:
+        b = np.asarray(p["bias"])
+        sd["bias"] = _a(b.transpose(2, 0, 1) if b.ndim == 3 else b)
     return sd
 
 

@@ -13,9 +13,13 @@ Counterpart of ``audio2photoreal_tpu/models/audio_encoder.py``:
   conv stack (kernels 2..13, replication left-pad, group norm, ReLU,
   residual x sqrt(0.5)), at wav2vec's ~100 Hz.
 
-The JAX package's ``Wav2VecDownsampler`` has no caller and ``AudioTcn`` is
-dead code in the reference; neither is ported.  The modules keep fairseq's
-state-dict names (extractor: ``conv_layers.{i}.0.weight`` for the conv,
+- ``Wav2VecDownsampler`` (reference: audio_encoder.py:48-74): 100 Hz
+  wav2vec features to a frame rate, and ``AudioTcn`` (audio_encoder.py:
+  78-194), the reference's alternative conditioning encoder: a log-mel
+  branch and a frozen wav2vec_large branch into a causal dilated TCN.  No
+  pipeline of either package calls them.
+
+The wav2vec modules keep fairseq's state-dict names (extractor: ``conv_layers.{i}.0.weight`` for the conv,
 ``conv_layers.{i}.2.{weight,bias}`` for its Fp32GroupNorm; aggregator: the
 conv at ``conv_layers.{i}.1``, the norm at ``conv_layers.{i}.3``), so a
 reference checkpoint loads as it is.  The convs run in torch's [B, C, T]
@@ -33,6 +37,8 @@ import torch.nn.functional as F
 
 from audio2photoreal_tpu_torch.core.config import WAV2VEC_SR
 from audio2photoreal_tpu_torch.core import dtypes
+from audio2photoreal_tpu_torch.ops.convs import causal_conv1d
+from audio2photoreal_tpu_torch.ops.melspec import melspectrogram
 from audio2photoreal_tpu_torch.ops.resample import resample
 from audio2photoreal_tpu_torch.parallel import collectives
 
@@ -258,3 +264,123 @@ class Wav2VecEncoder(nn.Module):
         wav = F.pad(wav, (320, 0))  # the reference's left zero pad (audio_encoder.py:39-42)
         m = self.wav2vec_model
         return m.feature_aggregator(m.feature_extractor(wav))
+
+
+class Wav2VecDownsampler(nn.Module):
+    """100 Hz wav2vec features -> a target frame rate (reference:
+    audio_encoder.py:48-74; JAX audio_encoder.py:279): causal conv 3, ReLU,
+    linear resize to (T + target) // 2, causal conv 3, linear resize to
+    target, LayerNorm.  [B, T, in_dim] -> [B, target, dim].
+
+    The resizes are ``F.interpolate(mode="linear", align_corners=False)``,
+    the reference's.  The JAX ``interp_to`` agrees with it when it
+    shrinks, the real use (100 Hz -> 30 fps); when it grows, JAX does not
+    clamp the first rows' negative source position and extrapolates
+    (ROADMAP, faults in the JAX package)."""
+
+    def __init__(self, dim: int = 512, in_dim: int = 512, device=None):
+        super().__init__()
+        self.conv1 = nn.Conv1d(in_dim, dim, 3, device=device)
+        self.conv2 = nn.Conv1d(dim, dim, 3, device=device)
+        self.norm = nn.LayerNorm(dim, eps=1e-5, device=device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Random init from ``generator``, as the JAX package initialises:
+        conv weights lecun-normal, biases 0, the norm identity."""
+        for conv in (self.conv1, self.conv2):
+            conv.weight.normal_(0.0, conv.weight[0].numel() ** -0.5, generator=generator)
+            conv.bias.zero_()
+        self.norm.reset_parameters()
+
+    def forward(self, x: torch.Tensor, target_length: int) -> torch.Tensor:
+        x = torch.relu(causal_conv1d(x, self.conv1.weight.permute(2, 1, 0), self.conv1.bias))
+        x = F.interpolate(x.transpose(1, 2), size=(x.shape[1] + target_length) // 2, mode="linear",
+                          align_corners=False).transpose(1, 2)
+        x = causal_conv1d(x, self.conv2.weight.permute(2, 1, 0), self.conv2.bias)
+        x = F.interpolate(x.transpose(1, 2), size=target_length, mode="linear",
+                          align_corners=False).transpose(1, 2)
+        return self.norm(x)
+
+
+TCN_RECEPTIVE_FIELD = 25
+TCN_KEEP = 0.8  # the TCN's dropout keeps 80% of its activations
+
+
+def draw_keep(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """AudioTcn's dropout keep mask, True with probability ``TCN_KEEP``: the
+    one place the TCN draws (tests replace it by the JAX package's masks)."""
+    return torch.rand(shape, generator=generator, device=device) < TCN_KEEP
+
+
+class AudioTcn(nn.Module):
+    """Log-mel + wav2vec features -> a causal dilated TCN audio encoding
+    (reference: audio_encoder.py:78-194; JAX audio_encoder.py:311):
+    [B, T, 1600] 48 kHz frames -> [B, T, encoding_dim].
+
+    - mel branch: 48 -> 24 kHz, ``melspectrogram`` (80 mels, hop 400, so two
+      frames a visual frame), frame 0 dropped, ``log(max(mel, 1e-10))``, the
+      two frames of a visual frame side by side: 160 channels, the first
+      frame's 80 first.
+    - wav2vec branch: 48 -> 16 kHz (no left pad), the frozen wav2vec_large
+      extractor and aggregator (no graph: the JAX stop_gradient), a causal
+      conv 3 to 256, a linear resize with aligned corners to T.
+    - TCN: the concatenation left-padded by 24 frames, six valid dilated
+      convs (dilations 1 2 3 1 2 3, receptive field 25), each followed by a
+      leaky ReLU 0.2 and, in training, dropout keeping 80% (masks from
+      ``draw_keep`` with the caller's generator); where a conv keeps the
+      width, the output is the mean of its input's last frames and its own.
+      A final 1x1 conv.
+    """
+
+    def __init__(self, encoding_dim: int = 128, use_melspec: bool = True, use_wav2vec: bool = True,
+                 device=None):
+        super().__init__()
+        self.use_melspec, self.use_wav2vec = use_melspec, use_wav2vec
+        if use_wav2vec:
+            self.wav2vec_extractor = ConvFeatureExtractor().to(device)
+            self.wav2vec_aggregator = ConvAggregator().to(device)
+            self.w2v_post = nn.Conv1d(512, 256, 3, device=device)
+        e = encoding_dim
+        cin = 160 * use_melspec + 256 * use_wav2vec
+        specs = [(cin, max(256, e), 1), (max(256, e), e, 2), (e, e, 3), (e, e, 1), (e, e, 2), (e, e, 3)]
+        self.tcn = nn.ModuleList(nn.Conv1d(ci, co, 3, dilation=d, device=device) for ci, co, d in specs)
+        self.final = nn.Conv1d(e, e, 1, device=device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Random init from ``generator``, as the JAX package initialises:
+        conv weights lecun-normal, biases 0, group norms identity."""
+        for name, p in self.named_parameters():
+            if p.dim() == 3:
+                p.normal_(0.0, p[0].numel() ** -0.5, generator=generator)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.fill_(1.0)
+
+    def features(self, audio_frames: torch.Tensor) -> torch.Tensor:
+        """[B, T, 1600] -> the TCN's input [B, 160 + 256, T] (as many of the
+        two branches as are on)."""
+        B, T, _ = audio_frames.shape
+        wav = audio_frames.reshape(B, -1)
+        feats = []
+        if self.use_melspec:
+            mel = melspectrogram(resample(wav, 48_000, 24_000))[:, :, 1:2 * T + 1]  # drop frame 0
+            mel = torch.log(torch.clamp(mel, min=1e-10))
+            feats.append(mel.reshape(B, 80, T, 2).permute(0, 3, 1, 2).reshape(B, 160, T))
+        if self.use_wav2vec:
+            with torch.no_grad():
+                c = self.wav2vec_aggregator(self.wav2vec_extractor(resample(wav, 48_000, WAV2VEC_SR)))
+            c = causal_conv1d(c, self.w2v_post.weight.permute(2, 1, 0), self.w2v_post.bias)
+            feats.append(F.interpolate(c.transpose(1, 2), size=T, mode="linear", align_corners=True))
+        return torch.cat(feats, dim=1)
+
+    def forward(self, audio_frames: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = F.pad(self.features(audio_frames), (TCN_RECEPTIVE_FIELD - 1, 0))
+        for conv in self.tcn:
+            y = F.leaky_relu(conv(x), 0.2)
+            if self.training:
+                y = y * draw_keep(y.shape, generator, y.device) / TCN_KEEP
+            x = (x[..., -y.shape[-1]:] + y) / 2.0 if x.shape[1] == y.shape[1] else y
+        return self.final(x).transpose(1, 2)

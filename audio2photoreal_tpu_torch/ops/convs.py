@@ -33,6 +33,18 @@ def conv1d(
     return out.transpose(1, 2)
 
 
+def causal_conv1d(
+    x: torch.Tensor,
+    kernel: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    dilation: int = 1,
+) -> torch.Tensor:
+    """Left-padded conv: output[t] sees inputs <= t only."""
+    left = (kernel.shape[0] - 1) * dilation
+    return conv1d(x, kernel, bias, dilation=dilation, padding=(left, 0))
+
+
 def valid_conv1d(
     x: torch.Tensor,
     kernel: torch.Tensor,

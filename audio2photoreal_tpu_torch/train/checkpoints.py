@@ -69,7 +69,11 @@ def try_resume(ckpt_dir: str, state: TrainState) -> Tuple[Optional[int], Dict[st
     if last is None:
         return None, {}
     device = next(state.model.parameters()).device
-    sd = torch.load(checkpoint_path(ckpt_dir, last), map_location=device, weights_only=True)
+    path = checkpoint_path(ckpt_dir, last)
+    sd = torch.load(path, map_location=device, weights_only=True)
+    if "optimizer" not in sd:
+        raise ValueError(f"{path} holds no optimizer state (a save dir converted from the JAX package carries "
+                         "only its EMA): train into another directory")
     state.load_state_dict(sd)
     return last, sd.get("extra", {})
 

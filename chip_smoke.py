@@ -303,6 +303,16 @@ exception and a nonzero exit.
    the group norms' moments summed over the ranks: within 1e-5 of scale of
    the 1-process extractor on the card; both walls, each rank's peak GB.
 
+35. module parity (after 7): the modules with no kernel of their own, on
+   the card against the CPU in f32: ``AudioTcn()`` (encoding 128, the mel
+   and the frozen wav2vec_large branch) on 2 x 4 s, in eval mode and in
+   training mode with the same dropout keep masks on both sides (and the
+   gradients of a scalar loss), ``Wav2VecDownsampler(512)`` from 400
+   wav2vec frames to 120, ``Conv2dELR`` at 64 channels and 256^2 (plain
+   with an untied bias; transposed, stride 2, box filter), ``blur_downsample``
+   and a three-layer ``concat_pyramid``: outputs within 2e-5 of their scale,
+   gradients within 1e-4 of each tensor's largest element; seconds of each.
+
 Then the wall seconds of each phase, one line with every kernel's numbers
 (the raster's launches by path: the render, the demo, the avatar trainer
 and the data-parallel paths; the f32 attention rows' bound
@@ -4822,6 +4832,114 @@ def phase_seq_shard(seed: int, smi: str) -> None:
 PHASE_S: dict = {}  # wall seconds of each phase that main() ran
 
 
+TCN_SECONDS, TCN_BATCH = 4, 2  # AudioTcn's clips: 2 x 4 s of 48 kHz audio, 120 frames at 30 fps
+MODULE_REL_TOL = 2e-5  # the f32 modules, card vs CPU, of the output's largest magnitude
+MODULE_GRAD_TOL = 1e-4  # their gradients, of each tensor's largest element
+
+
+def phase_tcn_elr_parity(seed: int) -> None:
+    """The modules with no kernel of their own (``models/audio_encoder.py``
+    ``AudioTcn`` and ``Wav2VecDownsampler``, ``render/layers_elr.py``), each
+    built from ``seed`` and run on the card and on the CPU (f32, TF32 off):
+    ``AudioTcn()`` (encoding 128, the mel and the wav2vec branch) on 2 x 4 s
+    in eval mode, and in training mode with the same keep masks on both
+    sides (``audio_encoder.draw_keep`` answered from numpy) with the
+    gradients of sum(out * R); ``Wav2VecDownsampler(512)`` from 400 wav2vec
+    frames to 120; ``Conv2dELR`` at 64 channels and 256^2, plain with an
+    untied bias and transposed at stride 2 with the fused box filter;
+    ``blur_downsample``; a three-layer ``concat_pyramid`` of transposed ELR
+    convs from 32^2 to 256^2: outputs within 2e-5 of their scale, gradients
+    within 1e-4 of each tensor's largest element."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from audio2photoreal_tpu_torch.models import audio_encoder
+    from audio2photoreal_tpu_torch.render import layers_elr
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(seed + 181)
+    gen = lambda k: torch.Generator().manual_seed(seed + k)  # noqa: E731
+    T = TCN_SECONDS * 30
+    frames = (rng.randn(TCN_BATCH, T, 1600) * 0.1).astype(np.float32)
+    R = rng.randn(TCN_BATCH, T, 128).astype(np.float32)
+    rows, secs = {}, {}
+
+    def both(name, module, fn, *inputs, grads=False):
+        """fn(module, *inputs) on the card and on the CPU -> the error row."""
+        out = {}
+        for dev in ("cuda", "cpu"):
+            m = copy.deepcopy(module).to(dev)
+            t0 = time.perf_counter()
+            res = fn(m, *(torch.from_numpy(a).to(dev) for a in inputs))
+            if grads:
+                (res * torch.from_numpy(R).to(dev)).sum().backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs[f"{name}_{dev}_s"] = time.perf_counter() - t0
+            out[dev] = (res.detach().cpu(), {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None})
+        (g, gg), (c, cg) = out["cuda"], out["cpu"]
+        scale = c.abs().max().item()
+        row = {"shape": list(c.shape), "max_abs_err": (g - c).abs().max().item(), "scale": scale,
+               "finite": bool(torch.isfinite(g).all())}
+        row["ok"] = row["finite"] and row["max_abs_err"] <= MODULE_REL_TOL * scale
+        if grads:
+            rel = {n: ((gg[n] - cg[n]).abs().max() / cg[n].abs().max().clamp_min(1e-30)).item() for n in cg}
+            row.update(grad_tensors=len(cg), worst_grad=max(rel, key=rel.get), worst_grad_rel=max(rel.values()),
+                       same_grads=sorted(gg) == sorted(cg))
+            row["ok"] = row["ok"] and row["same_grads"] and row["worst_grad_rel"] <= MODULE_GRAD_TOL
+        rows[name] = row
+
+    tcn = audio_encoder.AudioTcn()
+    tcn.reset_parameters(gen(182))
+    with torch.no_grad():
+        both("audio_tcn", tcn.eval(), lambda m, a: m(a), frames)
+    keep, real_keep = [], audio_encoder.draw_keep
+
+    def replay_keep(shape, generator, device):  # the same masks on both sides, in draw order
+        if len(keep) < 6:
+            keep.append(rng.rand(*shape) < audio_encoder.TCN_KEEP)
+        served.append(None)
+        return torch.from_numpy(keep[(len(served) - 1) % 6]).to(device)
+
+    served = []
+    audio_encoder.draw_keep = replay_keep
+    try:
+        both("audio_tcn_train", tcn.train(), lambda m, a: m(a), frames, grads=True)
+    finally:
+        audio_encoder.draw_keep = real_keep
+
+    ds = audio_encoder.Wav2VecDownsampler(512)
+    ds.reset_parameters(gen(183))
+    w2v = rng.randn(TCN_BATCH, TCN_SECONDS * 100, 512).astype(np.float32)
+    with torch.no_grad():
+        both("wav2vec_downsampler", ds, lambda m, a: m(a, T), w2v)
+        img = rng.randn(2, 64, 256, 256).astype(np.float32)
+        plain = layers_elr.Conv2dELR(64, 64, 3, padding=1, untied=True, height=256, width=256, lr_mul=0.5)
+        plain.reset_parameters(gen(184))
+        plain.bias.normal_(generator=gen(185))
+        both("conv2d_elr_untied", plain, lambda m, a: m(a), img)
+        up = layers_elr.Conv2dELR(64, 64, 3, stride=2, padding=1, transpose=True, fuse_box_filter=True)
+        up.reset_parameters(gen(186))
+        up.bias.normal_(generator=gen(187))
+        both("conv2d_elr_transposed_box", up, lambda m, a: m(a), img[:, :, ::2, ::2].copy())
+        both("blur_downsample", torch.nn.Identity(), lambda m, a: layers_elr.blur_downsample(a), img)
+        convs = torch.nn.ModuleList(layers_elr.Conv2dELR(64 + 3, 64, 4, stride=2, padding=1, transpose=True)
+                                    for _ in range(3))
+        for i, c in enumerate(convs):
+            c.reset_parameters(gen(188 + i))
+        y = rng.randn(2, 3, 256, 256).astype(np.float32)
+        both("concat_pyramid", convs, lambda m, a, b: layers_elr.concat_pyramid(
+            [lambda h, c=c: torch.nn.functional.leaky_relu(c(h), 0.2) for c in m], a, b, every_other=False,
+            transposed=True), rng.randn(2, 64, 32, 32).astype(np.float32), y)
+    emit("tcn_elr_parity", tol=MODULE_REL_TOL, grad_tol=MODULE_GRAD_TOL, keep_draws=len(served), **rows, **secs,
+         seconds=time.perf_counter() - t_phase)
+    bad = [n for n, r in rows.items() if not r["ok"]]
+    if bad or len(served) != 12:
+        raise AssertionError(f"the modules on the card disagree with the CPU's: {bad} (keep draws {len(served)})")
+
+
 def _timed(fn):
     """``fn`` with its wall seconds recorded in ``PHASE_S``."""
     def run(*args):
@@ -4853,6 +4971,7 @@ def main() -> None:
     _timed(phase_render_parity)(args.seed)
     _timed(phase_render_bf16_parity)(args.seed)
     _timed(phase_guide_parity)(args.seed)
+    _timed(phase_tcn_elr_parity)(args.seed)
     launches = _timed(phase_main_path)(args.seed, smi)
     render16 = _timed(phase_main_path_render_bf16)(args.seed, smi)
     gen16 = _timed(phase_main_path_generate_bf16)(args.seed, smi)

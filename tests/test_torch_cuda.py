@@ -16,7 +16,9 @@ full-width face denoise step within 1e-3 of the CPU's; the full-width guide's
 teacher-forced logits within 1e-5 of their largest magnitude of the CPU's,
 its cached decode token for token equal to its uncached one; one avatar
 train step's loss parts within 1e-5 relative of the CPU's, its gradients
-within 1e-4 of their largest element.
+within 1e-4 of their largest element; the modules without a kernel of
+their own (AudioTcn, Wav2VecDownsampler, the ELR layers) within 2e-5 of
+their output's scale of the CPU's, their gradients within 1e-4.
 """
 
 import pytest
@@ -893,3 +895,85 @@ def test_guide_keyframer_on_the_card(cuda, full_guide, tmp_path):
     keyframer = GuideKeyframer(str(tmp_path / "guide"), str(tmp_path / "vq"), cuda)
     kf = keyframer(full_guide[1].to(cuda), 20, torch.Generator(device=cuda).manual_seed(5))
     assert kf.shape == (2, 20, 104) and kf.device.type == "cuda" and torch.isfinite(kf).all()
+
+
+def _module_case(what):
+    """(module, fn(module, *inputs), inputs, grads) of the modules without a
+    kernel of their own, at small sizes, from seed 0."""
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.models import audio_encoder
+    from audio2photoreal_tpu_torch.render import layers_elr
+
+    rng = np.random.RandomState(0)
+    g = torch.Generator().manual_seed(0)
+    frames = (rng.randn(2, 8, 1600) * 0.1).astype(np.float32)
+    img = rng.randn(2, 8, 32, 32).astype(np.float32)
+    if what.startswith("audio_tcn"):
+        m = audio_encoder.AudioTcn(16)
+        m.reset_parameters(g)
+        return (m.train() if what == "audio_tcn_train" else m.eval()), (lambda m, a: m(a)), (frames,), \
+            what == "audio_tcn_train"
+    if what == "downsampler":
+        m = audio_encoder.Wav2VecDownsampler(24, 20)
+        m.reset_parameters(g)
+        return m, (lambda m, a: m(a, 30)), (rng.randn(2, 100, 20).astype(np.float32),), True
+    if what == "conv_untied":
+        m = layers_elr.Conv2dELR(8, 6, 3, padding=1, untied=True, height=32, width=32, lr_mul=0.5)
+        m.bias.data.normal_(generator=g)
+        return m, (lambda m, a: m(a)), (img,), True
+    if what == "conv_transposed_box":
+        m = layers_elr.Conv2dELR(8, 6, 3, stride=2, padding=1, output_padding=1, transpose=True,
+                                 fuse_box_filter=True)
+        return m, (lambda m, a: m(a)), (img,), True
+    if what == "blur":
+        return torch.nn.Identity(), (lambda m, a: layers_elr.blur_downsample(a, 4, 2, "replicate")), (img,), False
+    convs = torch.nn.ModuleList(layers_elr.Conv2dELR(8 + 2, 8, 4, stride=2, padding=1, transpose=True)
+                                for _ in range(3))
+    return convs, (lambda m, a, b: layers_elr.concat_pyramid(list(m), a, b, every_other=False, transposed=True)), \
+        (img[:, :, :8, :8].copy(), rng.randn(2, 2, 64, 64).astype(np.float32)), True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["audio_tcn", "audio_tcn_train", "downsampler", "conv_untied",
+                                  "conv_transposed_box", "blur", "pyramid"])
+def test_modules_without_a_kernel_match_the_cpu(cuda, what):
+    """AudioTcn, Wav2VecDownsampler and the ELR layers on the card against the
+    CPU (chip_smoke.py's tcn_elr_parity at small sizes): outputs within 2e-5
+    of their scale, gradients of sum(out * R) within 1e-4 of each tensor's
+    largest element; the TCN's dropout on the same keep masks."""
+    import copy
+
+    import numpy as np
+
+    from audio2photoreal_tpu_torch.models import audio_encoder
+
+    module, fn, inputs, grads = _module_case(what)
+    masks, real = [], audio_encoder.draw_keep
+    rng = np.random.RandomState(1)
+
+    def keep(shape, generator, device):
+        if len(masks) < 6:
+            masks.append(torch.from_numpy(rng.rand(*shape) < audio_encoder.TCN_KEEP))
+        keep.n += 1
+        return masks[(keep.n - 1) % 6].to(device)
+
+    keep.n = 0
+    audio_encoder.draw_keep = keep
+    out = {}
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            m = copy.deepcopy(module).to(dev)
+            y = fn(m, *(torch.from_numpy(a).to(dev) for a in inputs))
+            if grads:
+                r = torch.from_numpy(np.random.RandomState(2).randn(*y.shape).astype(np.float32)).to(dev)
+                (y * r).sum().backward()
+            out[dev.type] = (y.detach().cpu(), {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None})
+    finally:
+        audio_encoder.draw_keep = real
+    (gy, gg), (cy, cg) = out["cuda"], out["cpu"]
+    assert torch.isfinite(gy).all() and (gy - cy).abs().max() <= 2e-5 * cy.abs().max()
+    assert sorted(gg) == sorted(cg) and (not grads or cg)
+    for n in cg:
+        assert (gg[n] - cg[n]).abs().max() <= 1e-4 * cg[n].abs().max(), n
+    assert keep.n == (12 if what == "audio_tcn_train" else 0)

@@ -195,6 +195,28 @@ def test_cache_matches_jax(caches):
     assert got.nbytes() == want.nbytes()
 
 
+def test_cache_in_float16_matches_jax(caches, frontends):
+    """``dtype=np.float16`` storage on both sides: the stored features are
+    f16 and within 1e-3 of JAX's (relative to their scale), and of the f32
+    cache's; the silence response stays f32 in both."""
+    index, stats = caches["index"], caches["stats"]
+    audios = [dataset.read_wav(b + "_audio.wav")[: f * 1600] for b, f in index.entries]
+    got = feature_cache.build_audio_feature_cache(
+        feature_cache.make_frontend_apply(frontends["fe"]), audios, stats.norm_audio, seg_tokens=SEG,
+        dtype=np.float16, verbose=False)
+    want = j_cache.build_audio_feature_cache(
+        j_cache.make_frontend_apply(frontends["jfe"], frontends["fe_params"]["params"]), audios,
+        stats.norm_audio, seg_tokens=SEG, dtype=np.float16, verbose=False)
+    assert len(got.features) == len(want.features) == 2
+    for i, (a, b, f32) in enumerate(zip(got.features, want.features, caches["got"].features)):
+        assert a.dtype == b.dtype == np.float16 and a.shape == b.shape == f32.shape, i
+        assert_scaled(a.astype(np.float32), b.astype(np.float32), 1e-3, f"f16 features {i}")
+        assert_scaled(a.astype(np.float32), f32, 1e-3, f"f16 vs f32 features {i}")
+    assert got.silence.dtype == want.silence.dtype == np.float32
+    assert_scaled(got.silence, want.silence, what="silence")
+    assert got.nbytes() == want.nbytes() < caches["got"].nbytes()
+
+
 def test_cache_for_index_is_the_scene_build(caches, person, frontends):
     """``build_cache_for_index`` reads the index's scenes in order."""
     direct = feature_cache.build_cache_for_index(caches["index"], caches["stats"].norm_audio,
